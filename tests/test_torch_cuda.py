@@ -58,18 +58,44 @@ def test_wrapper_raises_on_unsupported_input(cuda, bad):
         cc.covariance_backward(z, torch.zeros(z.shape[0], c, c, device=cuda))
 
 
-@pytest.mark.parametrize("shape", [(9, 16, 64, 64), (3, 16, 47, 47), (2, 32, 33, 31),
-                                   (1, 5, 1, 3)])
-def test_kernels_match_plain_versions(cuda, shape):
+# (shape, storage offset in floats). HW % 4 == 0 with an aligned base takes the
+# kernels' 16-byte variants, for C = 16 and for any other C; a ragged HW or a
+# base 4 bytes past a 16-byte boundary takes their 4-byte variants.
+KERNEL_CASES = [((9, 16, 64, 64), 0), ((9, 16, 256, 256), 0), ((3, 16, 47, 47), 0),
+                ((2, 32, 16, 16), 0), ((2, 5, 8, 8), 0), ((2, 32, 33, 31), 0),
+                ((1, 5, 1, 3), 0), ((9, 16, 64, 64), 1), ((2, 32, 16, 16), 1)]
+
+
+def seeded_inputs(cuda, shape, offset):
+    """z (a contiguous view ``offset`` floats into its storage) and g, seeded."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    z = torch.randn(shape, device=cuda, generator=gen)
+    n = int(np.prod(shape))
+    z = torch.randn(n + offset, device=cuda, generator=gen)[offset:].view(shape)
     g = torch.randn(shape[0], shape[1], shape[1], device=cuda, generator=gen)
+    assert z.is_contiguous() and z.storage_offset() == offset
+    return z, g
+
+
+@pytest.mark.parametrize("shape,offset", KERNEL_CASES)
+def test_kernels_match_plain_versions(cuda, shape, offset):
+    z, g = seeded_inputs(cuda, shape, offset)
     f0, b0 = cc.covariance_forward.launches, cc.covariance_backward.launches
     got_f, got_b = cc.covariance_forward(z), cc.covariance_backward(z, g)
     torch.cuda.synchronize()
     assert (cc.covariance_forward.launches - f0, cc.covariance_backward.launches - b0) == (1, 1)
     assert_cov_close(got_f, cc.covariance_forward_plain(z))
     assert_scaled_close(got_b, cc.covariance_backward_plain(z, g))
+
+
+@pytest.mark.parametrize("shape,offset", [((9, 16, 64, 64), 0), ((3, 16, 47, 47), 0),
+                                          ((2, 32, 16, 16), 0), ((2, 32, 33, 31), 0),
+                                          ((9, 16, 64, 64), 1)])
+def test_two_kernel_calls_are_bitwise_equal(cuda, shape, offset):
+    z, g = seeded_inputs(cuda, shape, offset)
+    first = cc.covariance_forward(z), cc.covariance_backward(z, g)
+    second = cc.covariance_forward(z), cc.covariance_backward(z, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def test_autograd_gradient_matches_the_cpu(cuda):

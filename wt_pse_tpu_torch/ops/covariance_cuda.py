@@ -12,8 +12,10 @@ on the card and what the design does about it.
 
 Each wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel, or raises on what the kernel does not take
-(anything but contiguous f32 NCHW with C <= 32): there is no fallback. Each
-counts its launches in ``.launches``, a plain integer.
+(anything but contiguous f32 NCHW with C <= 32): there is no fallback. The
+library picks each kernel's 16-byte variant when HW % 4 == 0 and the pointers
+are 16-byte aligned, and the same kernel's 4-byte variant otherwise. Each
+wrapper counts its launches in ``.launches``, a plain integer.
 
 The library is built with ``nvcc`` at first use into ``build/kernels/`` at the
 root of the checkout (named by the hash of the source, so an edit rebuilds),
@@ -65,8 +67,8 @@ def _library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wtpse_covariance_chunk.argtypes = []
-    lib.wtpse_covariance_chunk.restype = i
+    lib.wtpse_covariance_gram_chunks.argtypes = [i, i, i]
+    lib.wtpse_covariance_gram_chunks.restype = i
     lib.wtpse_covariance_max_c.argtypes = []
     lib.wtpse_covariance_max_c.restype = i
     lib.wtpse_covariance_gram_f32.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
@@ -76,7 +78,21 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_input(z: torch.Tensor, lib: ctypes.CDLL) -> tuple[int, int, int]:
+@functools.cache
+def _max_c() -> int:
+    return _library().wtpse_covariance_max_c()
+
+
+@functools.lru_cache(maxsize=256)
+def _gram_chunks(device_index: int, b: int, c: int, hw: int) -> int:
+    """Chunks the library cuts each sample into on this device (it sizes them
+    to fill the card once); called with that device current."""
+    n_chunks = _library().wtpse_covariance_gram_chunks(b, c, hw)
+    _raise_on(-n_chunks if n_chunks < 1 else 0, "covariance gram planning")
+    return n_chunks
+
+
+def _check_cuda_input(z: torch.Tensor) -> tuple[int, int, int]:
     if z.device.type != "cuda":
         raise ValueError(f"covariance kernels take CUDA or CPU tensors, got {z.device}")
     if z.dtype != torch.float32:
@@ -85,11 +101,17 @@ def _check_cuda_input(z: torch.Tensor, lib: ctypes.CDLL) -> tuple[int, int, int]
         raise ValueError("covariance kernels take a contiguous NCHW tensor, got "
                          f"shape {tuple(z.shape)} strides {z.stride()}")
     b, c, h, w = z.shape
-    if not 1 <= c <= lib.wtpse_covariance_max_c() or h * w < 2 or b < 1:
-        raise ValueError(f"covariance kernels take 1 <= C <= "
-                         f"{lib.wtpse_covariance_max_c()}, HW >= 2 and B >= 1; "
-                         f"got shape {tuple(z.shape)}")
+    if not 1 <= c <= _max_c() or h * w < 2 or b < 1:
+        raise ValueError(f"covariance kernels take 1 <= C <= {_max_c()}, HW >= 2 and "
+                         f"B >= 1; got shape {tuple(z.shape)}")
     return b, c, h * w
+
+
+def _raw_stream(device_index: int) -> int:
+    """The current stream of a CUDA device as a ``cudaStream_t`` handle. The
+    accessor that torch's own generated kernel launchers use: it builds no
+    ``torch.cuda.Stream`` object, which costs microseconds a call."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -127,12 +149,13 @@ def covariance_forward(z: torch.Tensor) -> torch.Tensor:
     if z.device.type == "cpu":
         return covariance_forward_plain(z)
     lib = _library()
-    b, c, hw = _check_cuda_input(z, lib)
-    n_chunks = -(-hw // lib.wtpse_covariance_chunk())
-    partial = torch.empty((b, n_chunks, c * c), dtype=torch.float32, device=z.device)
-    cov = torch.empty((b, c, c), dtype=torch.float32, device=z.device)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    b, c, hw = _check_cuda_input(z)
+    dev = z.device
+    with torch.cuda.device(dev):
+        n_chunks = _gram_chunks(dev.index, b, c, hw)
+        partial = torch.empty((b, n_chunks, c * c), dtype=torch.float32, device=dev)
+        cov = torch.empty((b, c, c), dtype=torch.float32, device=dev)
+        stream = _raw_stream(dev.index)
         rc = lib.wtpse_covariance_gram_f32(z.data_ptr(), partial.data_ptr(),
                                            cov.data_ptr(), b, c, hw, EPS, stream)
     _raise_on(rc, "covariance gram")
@@ -149,15 +172,16 @@ def covariance_backward(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if z.device.type == "cpu":
         return covariance_backward_plain(z, g)
     lib = _library()
-    b, c, hw = _check_cuda_input(z, lib)
+    b, c, hw = _check_cuda_input(z)
     if g.shape != (b, c, c) or g.dtype != torch.float32 or not g.is_contiguous() \
             or g.device != z.device:
         raise ValueError(f"covariance dz kernel takes a contiguous float32 "
                          f"(B, C, C) gradient on {z.device}, got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
     dz = torch.empty_like(z)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    dev = z.device
+    with torch.cuda.device(dev):
+        stream = _raw_stream(dev.index)
         rc = lib.wtpse_covariance_dz_f32(z.data_ptr(), g.data_ptr(), dz.data_ptr(),
                                          b, c, hw, stream)
     _raise_on(rc, "covariance dz")
