@@ -25,20 +25,42 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    that computes the same function (a yardstick the port never calls), in
    turns in one loop, so that all three are timed on one card at one time:
    after a write that fills the L2 with dirty lines (the record), then after a
-   read (a second reading); and the host time of a wrapper call.
+   read (a second reading); and the host time of a wrapper call;
+6. the trainer, the slice's main path: ``Trainer`` at full width (256x256,
+   batch 9 = 3 domains x 3 of 12 images each, f32) on numpy-made pools (no
+   PIL, no YAML, no file read) trains 5 epochs of 4 steps, with the launch
+   counts set to 0 just before and read just after (8 of each kernel a step),
+   and validates after epochs 3 and 4 on 8 images whose labels are at two
+   native resolutions (512x512 and 640x640). It checks finite losses, the
+   log rows, the 7 finite validation metrics, best.json and a checkpoint; a
+   checkpoint of the trained nets reloaded into fresh nets (strictly, and by
+   the reference's filtered partial load: 336/158/336/158 leaves) must
+   predict bitwise equal on the card; a resume from the newest checkpoint
+   must start at its epoch with the best objective restored and train one
+   more epoch, which is traced with ``torch.profiler`` (the card's busy share
+   of the epoch, the device time of sampling and augmentation). It prints
+   the epoch times, steps a second, each validation's time split into the
+   predict on the card, the host upsample and the host scoring, the peak
+   device memory, and whether PIL and PyYAML import on this machine.
 
-The line before the last is a JSON ``kernels`` record; the last is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or the JAX package.
+The card's name and power limit follow the build line. The line before the
+last is a JSON ``kernels`` record (``launches`` counted in phase 6); the last
+is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or the JAX
+package.
 """
 
 from __future__ import annotations
 
+import glob
+import importlib.util
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,6 +71,7 @@ F32_FLOP_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 F32_REDUCE_RTOL = 2e-5     # tolerance class f32_reduce (tests/test_goldens.py:49)
 CONV = (5e-4, 1e-5)        # tolerance class conv
 STEPS = 4
+EPOCHS = 5  # phase 6: 4 steps an epoch, validation after epochs 3 and 4
 MAIN_SHAPE = (9, 16, 256, 256)
 # (shape, storage offset in floats): HW % 4 == 0 with an aligned base (the
 # 16-byte variants, at C = 16 and at another C); ragged HW and an unaligned
@@ -166,10 +189,32 @@ def check_against_cpu(dev) -> None:
         raise SystemExit("the card disagrees with the CPU reference on a small input")
 
 
+def device_time(prof):
+    """(busy us: the union of the device kernels' and copies' intervals,
+    first-to-last window us, us by name, calls by name) of a trace; the
+    annotation ranges are left out."""
+    from torch.autograd import DeviceType
+
+    spans, by_name, calls = [], {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            calls[e.name] = calls.get(e.name, 0) + 1
+    if not spans:
+        raise SystemExit("the profiler saw no device time")
+    busy, end = 0.0, -math.inf
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    return busy, window, by_name, calls
+
+
 def profile_steps(step, state, batch, gen, step_ms: float, n: int = 2) -> None:
     """Device time by kernel over ``n`` steady traced steps, and the device's
     busy share of ``step_ms``, the untraced steady step time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -179,25 +224,13 @@ def profile_steps(step, state, batch, gen, step_ms: float, n: int = 2) -> None:
             step(state, batch, generator=gen)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name, calls = [], {}, {}
-    for e in prof.events():  # device kernels and copies; not the annotation ranges
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            calls[e.name] = calls.get(e.name, 0) + 1
-    if not spans:
-        raise SystemExit("the profiler saw no device time")
-    busy, end = 0.0, -math.inf
-    for s, e in sorted(spans):  # union of the kernels' intervals
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    busy, window, by_name, calls = device_time(prof)
+    n_events = sum(calls.values())
     total = sum(by_name.values())
     log(f"profile ({n} steps): traced wall {wall_us / n / 1e3:.2f} ms/step, device "
         f"busy {busy / n / 1e3:.2f} ms/step = {busy / n / 1e3 / step_ms:.1%} of the "
         f"untraced {step_ms:.2f} ms step, {busy / window:.1%} of the traced "
-        f"first-to-last-kernel window; {len(spans) // n} device events/step")
+        f"first-to-last-kernel window; {n_events // n} device events/step")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         log(f"  {us / n / 1e3:8.3f} ms/step {us / total:6.1%}  {name[:110]}")
     # the hand-written kernels as the step calls them, the L2 left as the
@@ -211,7 +244,7 @@ def profile_steps(step, state, batch, gen, step_ms: float, n: int = 2) -> None:
                   for k, (v, k_n) in sorted(own.items())))
 
 
-def main_path(cc, dev) -> dict:
+def main_path(cc, dev) -> None:
     """Phase 4: full-width steps and the two-stage predict."""
     from wt_pse_tpu_torch.config import default_hparams
     from wt_pse_tpu_torch.models.common import ModelConfig
@@ -280,7 +313,174 @@ def main_path(cc, dev) -> dict:
     log("two-stage predict (batch 9, 256x256): " +
         ", ".join(f"{t * 1e3:.2f} ms" for t in ptimes) +
         f"; od>0.75 share {float((torch.sigmoid(od) > 0.75).float().mean()):.4f}")
-    return {k: v // STEPS for k, v in launches.items()}
+
+
+def synthetic_pools(seed: int = 11):
+    """Phase 6's data, made with numpy: 3 train domains of 12 images at 256x256
+    uint8 with gray labels (255 background, 128 disc, 0 cup; a disc disk and a
+    cup disk at seeded centres and radii, and a per-domain brightness shift),
+    and a validation domain of 8 images at 256x256 whose labels are at native
+    512x512 (5) and 640x640 (3), each disk drawn on every grid from the same
+    normalised centre and radius."""
+    from wt_pse_tpu_torch.data.fundus import FundusDomain
+
+    r = np.random.RandomState(seed)
+
+    def sample(domain: int, label_hws):
+        cy, cx = r.uniform(0.35, 0.65, 2)
+        rad = r.uniform(0.15, 0.22)
+        grays = []
+        for hw in (256,) + label_hws:
+            yy, xx = (np.mgrid[0:hw, 0:hw] + 0.5) / hw
+            d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+            gray = np.full((hw, hw), 255, np.uint8)
+            gray[d2 < rad ** 2] = 128
+            gray[d2 < (0.5 * rad) ** 2] = 0
+            grays.append(gray)
+        disc = (grays[0] < 255)[..., None]
+        img = r.rand(256, 256, 3) * 120 + 40 + 25 * domain + 50 * disc
+        return np.clip(img, 0, 255).astype(np.uint8), grays[-1]
+
+    train = []
+    for d in range(3):
+        pairs = [sample(d, ()) for _ in range(12)]
+        train.append(FundusDomain(images=np.stack([p[0] for p in pairs]),
+                                  labels=np.stack([p[1] for p in pairs])))
+    pairs = [sample(1, (512 if i < 5 else 640,)) for i in range(8)]
+    val = FundusDomain(images=np.stack([p[0] for p in pairs]), labels=[p[1] for p in pairs])
+    return train, val
+
+
+def trainer_path(cc, dev) -> dict:
+    """Phase 6: the Trainer, through its entry points. Returns the launch counts
+    of its run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wt_pse_tpu_torch.config import default_hparams
+    from wt_pse_tpu_torch.data.augment import BATCH_RANGE
+    from wt_pse_tpu_torch.io.checkpoint import (load_reference_checkpoint,
+                                                restore_ensemble, save_ensemble)
+    from wt_pse_tpu_torch.models.common import ModelConfig
+    from wt_pse_tpu_torch.train.eval import make_predict_fn
+    from wt_pse_tpu_torch.train.state import init_ensemble
+    from wt_pse_tpu_torch.train.trainer import Trainer
+
+    log("importable here: " + ", ".join(
+        f"{m} {importlib.util.find_spec(m) is not None}" for m in ("PIL", "yaml")))
+    hp = default_hparams("WT_PSE")
+    train, val = synthetic_pools()
+    kw = dict(batch_size=9, interval_validate=1, label="OD", seed=1, eval_batch_size=8,
+              val_visualization=False, device=dev)
+    nets = lambda st: (ns.net for ns in st.net_states())
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "run")
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = Trainer(hp, train, val, run, max_epoch=EPOCHS, **kw)
+        torch.cuda.synchronize()
+        cc.covariance_forward.launches = 0
+        cc.covariance_backward.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        wall = time.perf_counter() - t0
+        launches = {"gram": cc.covariance_forward.launches,
+                    "dz": cc.covariance_backward.launches}
+        steps = EPOCHS * trainer.iter_per_epoch
+        et = trainer.epoch_seconds
+        steady = statistics.median(et[1:])
+        log(f"trainer ({EPOCHS} epochs x {trainer.iter_per_epoch} steps, 256x256, batch 9 = "
+            f"3x3, f32): {wall:.2f} s in train(); epochs " +
+            ", ".join(f"{t:.3f}" for t in et) + f" s; first {et[0]:.3f} s, steady median "
+            f"{steady:.3f} s = {trainer.iter_per_epoch / steady:.3f} steps/s; the host "
+            f"enqueued the steps in " + ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) +
+            f" s of them; covariance "
+            f"launches {launches}; peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+        if launches != {"gram": 8 * steps, "dz": 8 * steps}:
+            raise SystemExit(f"expected {8 * steps} gram and dz launches, got {launches}")
+        for i, v in enumerate(trainer.validation_seconds):
+            log(f"validation {i} (8 images, native 512x512 x5 and 640x640 x3): "
+                f"{sum(v.values()):.3f} s = predict on the card {v['predict']:.3f} s + "
+                f"host upsample {v['upsample']:.3f} s + host scoring {v['score']:.3f} s")
+
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        epochs = [r for r in recs if "loss_seg" in r]
+        vals = [{k: v for k, v in r.items() if k.startswith("val/")}
+                for r in recs if "val/objective" in r]
+        with open(os.path.join(run, "log.csv")) as f:
+            rows = f.read().strip().splitlines()[1:]
+        ckpts = sorted(glob.glob(os.path.join(run, "checkpoint_*.pth.tar")),
+                       key=lambda p: int(re.findall(r"_(\d+)\.pth", p)[0]))
+        log("epoch losses: " + json.dumps(
+            [{k: r[k] for k in ("loss_seg", "loss_seg_oc", "loss_kd", "loss_kd_oc")}
+             for r in epochs]))
+        log("validations: " + json.dumps(vals))
+        bad = [r["step"] for r in epochs
+               if not all(math.isfinite(v) for k, v in r.items() if k != "step")]
+        if len(epochs) != EPOCHS or bad:
+            raise SystemExit(f"{len(epochs)} epoch records, non-finite at epochs {bad}")
+        if len(rows) != EPOCHS:
+            raise SystemExit(f"log.csv has {len(rows)} rows, not {EPOCHS}")
+        if len(vals) != 2 or any(len(v) != 7 or not all(map(math.isfinite, v.values()))
+                                 for v in vals):
+            raise SystemExit(f"expected 2 validations of 7 finite metrics, got {vals}")
+        if not ckpts or not os.path.exists(os.path.join(run, "best.json")):
+            raise SystemExit("no checkpoint or no best.json")
+
+        # the trained nets, saved and reloaded into fresh nets, predict bitwise equal
+        cfg = ModelConfig.from_hparams(hp)
+        final = os.path.join(tmp, "final.pth.tar")
+        save_ensemble(final, trainer.state)
+        images = trainer.val_images.permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
+        want = make_predict_fn(*nets(trainer.state), device=dev)(images)
+        strict = restore_ensemble(final, init_ensemble(
+            cfg, device=dev, generator=torch.Generator().manual_seed(5)))
+        partial = init_ensemble(cfg, device=dev, generator=torch.Generator().manual_seed(6))
+        counts = load_reference_checkpoint(final, partial, strict=True)
+        for what, st in (("strict load", strict), ("filtered partial load", partial)):
+            got = make_predict_fn(*nets(st), device=dev)(images)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            log(f"reloaded checkpoint ({what}) predicts bitwise equal: {same}")
+            if not same:
+                raise SystemExit(f"the checkpoint reloaded by {what} predicts otherwise")
+        log(f"filtered partial load matched leaves: {counts}")
+        if list(counts.values()) != [336, 158, 336, 158]:
+            raise SystemExit(f"expected 336/158/336/158 matched leaves, got {counts}")
+
+        # resume from the newest checkpoint; its one more epoch is profiled
+        n = int(re.findall(r"_(\d+)\.pth", ckpts[-1])[0])
+        with open(os.path.join(run, "best.json")) as f:
+            best = json.load(f)
+        resumed = Trainer(hp, train, val, os.path.join(tmp, "resumed"), max_epoch=n + 1,
+                          stop_epoch=n, resume=ckpts[-1], **kw)
+        if resumed.epoch != n or resumed.best["objective"] != best["objective"]:
+            raise SystemExit(f"resume from {ckpts[-1]} starts at epoch {resumed.epoch} with "
+                             f"best {resumed.best}, not epoch {n} with {best}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            resumed.train()
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "resumed", "log.csv")) as f:
+            rows = f.read().strip().splitlines()[1:]
+        if len(rows) != 1 or rows[0].split(",")[0] != str(n):
+            raise SystemExit(f"the resumed run logged {rows}, not one row of epoch {n}")
+        busy, window, _, _ = device_time(prof)
+        ranges = [e for e in prof.events() if e.name == BATCH_RANGE
+                  and e.device_type != torch.autograd.DeviceType.CUDA]
+        batch_us = sum(e.device_time_total for e in ranges)
+        batch_host_us = sum(e.cpu_time_total for e in ranges)
+        log(f"resumed at epoch {n} (best objective {best['objective']:.6f} restored), one "
+            f"more epoch traced: {resumed.epoch_seconds[0]:.3f} s traced; device busy "
+            f"{busy / 1e6:.3f} s = {busy / 1e6 / steady:.1%} of the untraced steady "
+            f"{steady:.3f} s epoch, {busy / window:.1%} of the traced first-to-last-kernel "
+            f"window; sampling and augmentation {batch_us / 1e3:.3f} ms of device time "
+            f"({batch_us / busy:.2%} of busy) and {batch_host_us / 1e3:.3f} ms of host time "
+            f"({batch_host_us / 1e6 / resumed.epoch_seconds[0]:.2%} of the traced epoch)")
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)
+    log("host time of the traced epoch by op (self, top 12): " + "; ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}" for e in host[:12]))
+    return launches
 
 
 def time_in_turns(fns, flush, iters: int = 30) -> list[float]:
@@ -315,7 +515,7 @@ def host_us(fn, iters: int = 100) -> float:
     return statistics.median(times) * 1e6
 
 
-def time_kernels(cc, dev, errs: dict, launches: dict) -> list[dict]:
+def time_kernels(cc, dev, errs: dict) -> list[dict]:
     """Phase 5, at the main-path shape. Cold L2: a 256 MB write before every
     call leaves the L2 full of dirty lines, as the training step leaves it;
     the call then also writes those back as it reads. That is ``ms``, the
@@ -355,7 +555,7 @@ def time_kernels(cc, dev, errs: dict, launches: dict) -> list[dict]:
         short = name.split("_")[1]
         ms, lib_ms, plain_ms = time_in_turns((kern, lib, plain), buf.zero_)
         row = {"name": name, "route": "cuda", "source": "wt_pse_tpu_torch/csrc/covariance.cu",
-               "replaces": line, "launches": launches[short],
+               "replaces": line, "launches": None,
                "max_abs_err": errs[short], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -392,17 +592,19 @@ def main() -> int:
     for line in compiler_out.splitlines():  # each kernel's name, then its numbers
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True, text=True,
+                       check=True, timeout=60).stdout.strip().splitlines()[0])
 
     errs = check_kernels(cc, dev)
     check_against_cpu(dev)
-    launches = main_path(cc, dev)
-    rows = time_kernels(cc, dev, errs, launches)
+    main_path(cc, dev)
+    rows = time_kernels(cc, dev, errs)
+    launches = trainer_path(cc, dev)
+    for row in rows:  # the count of the slice's main path, the trainer's run
+        row["launches"] = launches[row["name"].split("_")[1]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
-    print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

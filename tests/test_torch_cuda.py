@@ -8,7 +8,9 @@ where only PyTorch is installed (``tests/conftest.py`` imports JAX, hence
 The kernels are held against their plain versions at tolerance class
 ``f32_reduce`` (rtol 2e-5, relative to the scale of the result: a covariance
 entry against ``sqrt(cov_cc * cov_dd)``, dz against its largest magnitude);
-a step on the card against the same step on the CPU at class ``conv``.
+a step on the card against the same step on the CPU at class ``conv``;
+augmentation with injected draws against the CPU (images at ``f32_reduce``,
+masks exact); one Trainer epoch and a validation on the card.
 """
 
 import numpy as np
@@ -16,11 +18,14 @@ import pytest
 import torch
 
 from wt_pse_tpu_torch.config import default_hparams
+from wt_pse_tpu_torch.data import augment
+from wt_pse_tpu_torch.data.fundus import FundusDomain
 from wt_pse_tpu_torch.models.common import ModelConfig
 from wt_pse_tpu_torch.ops import covariance_cuda as cc
 from wt_pse_tpu_torch.ops.whitening import feature_covariance
 from wt_pse_tpu_torch.train.state import init_ensemble
 from wt_pse_tpu_torch.train.step import EPS_KEYS, StepConfig, make_train_step
+from wt_pse_tpu_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.cuda
 F32_REDUCE_RTOL = 2e-5
@@ -141,3 +146,40 @@ def test_step_launches_both_kernels_eight_times_and_matches_the_cpu(cuda):
         assert np.isfinite(got), k
         if not k.startswith(("loss_kd", "train_dice")):
             np.testing.assert_allclose(got, float(v), rtol=5e-4, atol=1e-5, err_msg=k)
+
+
+def test_augmentation_matches_the_cpu(cuda):
+    r = np.random.RandomState(2)
+    b, size = 9, 256
+    img = torch.from_numpy((r.rand(b, size, size, 3) * 255).astype(np.uint8))
+    lab = torch.from_numpy(r.choice([0, 128, 255], size=(b, size, size)).astype(np.uint8))
+    draws = augment.sample_params(b, size, torch.Generator().manual_seed(4), torch.device("cpu"))
+    out = [augment.augment_batch(img.to(d), lab.to(d), draws=tuple(t.to(d) for t in draws))
+           for d in ("cpu", cuda)]
+    assert_scaled_close(out[1]["image"].cpu(), out[0]["image"])
+    for k in ("target_od", "target_oc"):
+        assert torch.equal(out[1][k].cpu(), out[0][k]), k
+
+
+def test_trainer_epoch_and_validation_on_the_card(cuda, tmp_path):
+    r = np.random.RandomState(3)
+    yy, xx = np.mgrid[0:64, 0:64]
+    gray = np.full((64, 64), 255, np.uint8)
+    gray[(yy - 32) ** 2 + (xx - 32) ** 2 < 300] = 128
+    gray[(yy - 32) ** 2 + (xx - 32) ** 2 < 80] = 0
+    doms = [FundusDomain(images=r.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8),
+                         labels=np.stack([gray] * 4)) for _ in range(3)]
+    val = FundusDomain(images=doms[0].images[:3], labels=[np.kron(gray, np.ones((2, 2), np.uint8))] * 3)
+    trainer = Trainer(default_hparams("WT_PSE"), doms, val, str(tmp_path / "run"), batch_size=6,
+                      max_epoch=1, val_visualization=False, device=cuda)
+    f0, b0 = cc.covariance_forward.launches, cc.covariance_backward.launches
+    trainer.train()
+    steps = trainer.iter_per_epoch
+    assert steps == 2
+    assert (cc.covariance_forward.launches - f0, cc.covariance_backward.launches - b0) == \
+        (8 * steps, 8 * steps)
+    with open(tmp_path / "run" / "metrics.jsonl") as f:
+        rec = f.readline()
+    assert "loss_seg" in rec and "NaN" not in rec and "Infinity" not in rec
+    val_out = trainer.validate()
+    assert len(val_out) == 7 and all(np.isfinite(v) for v in val_out.values())

@@ -1,5 +1,6 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX package,
-no module of it imports them, and its entry points run on the card unless the
+no module of it imports them, every module imports without PIL or PyYAML (the
+CUDA machine may lack both), and its entry points run on the card unless the
 caller asks for the CPU."""
 
 import os
@@ -12,13 +13,16 @@ import pytest
 import torch
 
 import wt_pse_tpu_torch
+from wt_pse_tpu_torch.cli import train as cli_train
 from wt_pse_tpu_torch.config import default_hparams
+from wt_pse_tpu_torch.data.augment import make_device_batch_fn
 from wt_pse_tpu_torch.models.common import ModelConfig
 from wt_pse_tpu_torch.models.shape_prior import ShapeStudent
 from wt_pse_tpu_torch.models.wt_pse import WTPSE
 from wt_pse_tpu_torch.train.eval import make_predict_fn
 from wt_pse_tpu_torch.train.state import init_ensemble
 from wt_pse_tpu_torch.train.step import StepConfig, make_train_step
+from wt_pse_tpu_torch.train.trainer import Trainer
 
 from torch_port import torch_single_thread  # noqa: F401
 
@@ -36,7 +40,7 @@ def _modules():
 
 def test_importing_every_module_leaves_jax_out():
     mods = _modules()
-    assert "wt_pse_tpu_torch.ops.covariance_cuda" in mods and len(mods) >= 15
+    assert "wt_pse_tpu_torch.ops.covariance_cuda" in mods and len(mods) >= 34
     code = ("import sys, importlib\n"
             f"for m in {['wt_pse_tpu_torch'] + mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -47,6 +51,24 @@ def test_importing_every_module_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_every_module_imports_without_pil_or_yaml():
+    """PIL and yaml are imported only inside the functions that decode or
+    write a PNG or read or write YAML."""
+    code = ("import sys, importlib, importlib.abc\n"
+            "class Block(importlib.abc.MetaPathFinder):\n"
+            "    def find_spec(self, name, path, target=None):\n"
+            "        if name.split('.')[0] in ('PIL', 'yaml'):\n"
+            "            raise ImportError(f'{name} is blocked')\n"
+            "sys.meta_path.insert(0, Block())\n"
+            f"for m in {['wt_pse_tpu_torch'] + _modules()!r}: importlib.import_module(m)\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -70,6 +92,9 @@ ENTRY_POINTS = {
     "make_train_step": lambda: make_train_step(StepConfig(default_hparams("WT_PSE"), 3, 1)),
     "make_predict_fn": lambda: make_predict_fn(
         *(m(_cfg(), device="cpu") for m in (WTPSE, ShapeStudent, WTPSE, ShapeStudent))),
+    "make_device_batch_fn": lambda: make_device_batch_fn(3),
+    "Trainer": lambda: Trainer(default_hparams("WT_PSE"), [], None, "unused"),
+    "cli.train.main": lambda: cli_train.main(["--running_times", "1", "--out", "unused"]),
 }
 
 

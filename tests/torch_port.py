@@ -1,8 +1,10 @@
 """Shared helpers of the ``tests/test_torch_*.py`` files: layout moves between the
-JAX package (NHWC) and the port (NCHW), Flax init, weight carrying, and the
-tolerance classes of ``tests/test_goldens.py:49``."""
+JAX package (NHWC) and the port (NCHW), Flax init, weight carrying, the
+tolerance classes of ``tests/test_goldens.py:49``, and a synthetic Fundus tree."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pytest
@@ -70,3 +72,29 @@ def assert_stats_close(port_net: torch.nn.Module, params: dict, batch_stats: dic
     assert keys
     for k in keys:
         assert_close(have[k].cpu().numpy(), want[k].numpy(), cls, k)
+
+
+def write_domain(root: str, dom: int, phase: str, n: int, hw: int = 32, native: int = 48):
+    """A synthetic Fundus domain on disk, as ``tests/test_trainer_e2e.py``'s
+    ``_write_domain``: ``n`` PNG images with 255/128/0 disc and cup masks,
+    ``hw`` square for training and ``native`` square for testing (an int, or
+    a list with one size an image)."""
+    from PIL import Image
+
+    d = os.path.join(root, f"Domain{dom}", phase, "ROIs")
+    os.makedirs(os.path.join(d, "image"), exist_ok=True)
+    os.makedirs(os.path.join(d, "mask"), exist_ok=True)
+    prefix = {1: "gd", 2: "g", 3: "G", 4: "V"}[dom]
+    rng = np.random.RandomState(dom * 100 + (phase == "test"))
+    sizes = native if isinstance(native, (list, tuple)) else [native] * n
+    for i in range(n):
+        size = sizes[i] if phase == "test" else hw
+        img = (rng.rand(size, size, 3) * 255).astype(np.uint8)
+        yy, xx = np.mgrid[0:size, 0:size]
+        disc = ((yy - size / 2) ** 2 + (xx - size / 2) ** 2 < (size / 3) ** 2)
+        cup = ((yy - size / 2) ** 2 + (xx - size / 2) ** 2 < (size / 6) ** 2)
+        mask = np.full((size, size), 255, np.uint8)
+        mask[disc] = 128
+        mask[cup] = 0
+        Image.fromarray(img).save(os.path.join(d, "image", f"{prefix}_{i}.png"))
+        Image.fromarray(mask).save(os.path.join(d, "mask", f"{prefix}_{i}.png"))

@@ -1,3 +1,4 @@
 from wt_pse_tpu_torch.config.hparams import ALGORITHMS, default_hparams
+from wt_pse_tpu_torch.config.loader import Config, argv_update, load_config
 
-__all__ = ["ALGORITHMS", "default_hparams"]
+__all__ = ["ALGORITHMS", "Config", "argv_update", "default_hparams", "load_config"]

@@ -1,21 +1,32 @@
-"""Two-stage prediction: coarse OD -> ROI -> fine OC (counterpart of
-``wt_pse_tpu/train/eval.py::make_predict_fn``, lines 37-86):
+"""Two-stage prediction and its evaluation at native resolution (counterpart
+of ``wt_pse_tpu/train/eval.py``):
 
-  out_od   = main_od.predict(student_od, image)
+  out_od   = main_od.predict(student_od, image)             # 256x256 logits
   od_pred  = sigmoid(out_od) > 0.75
   roi      = (image + 1) * od_pred - 1
   out_oc   = main_oc.predict(student_oc, roi) * od_pred
+  both -> bilinear upsample to the native label resolution (host, f64)
+       -> sigmoid > 0.75 -> largest CC -> fill holes -> Dice / HD95 / ASD
+  an empty prediction scores HD = ASD = 100                  (Trainer.py:221-233)
 
-Upsampling to the native label resolution, post-processing and metrics are
-not ported yet.
+The predict runs on the card in chunks of ``batch_size`` images of one native
+resolution, with one device-to-host copy a chunk; the upsample and the scoring
+run on the host, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
+import time
+from collections import defaultdict
+
+import numpy as np
 import torch
 
 from wt_pse_tpu_torch.models.shape_prior import ShapeStudent
 from wt_pse_tpu_torch.models.wt_pse import WTPSE
+from wt_pse_tpu_torch.ops import metrics as M
+from wt_pse_tpu_torch.ops.postprocess import postprocess_logits
 from wt_pse_tpu_torch.runtime import resolve_device
 
 
@@ -44,3 +55,155 @@ def make_predict_fn(main_od: WTPSE, stud_od: ShapeStudent, main_oc: WTPSE,
         return out_od, stage(main_oc, stud_oc, roi) * od_pred
 
     return predict
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_matrix_f64(in_size: int, out_size: int) -> np.ndarray:
+    """The f64 resize matrix, cached: every chunk of a resolution reuses it.
+    Callers must not mutate it."""
+    return _linear_resize_matrix_np(in_size, out_size).astype(np.float64)
+
+
+def _linear_resize_matrix_np(in_size: int, out_size: int) -> np.ndarray:
+    """Half-pixel bilinear resize matrix (out_size, in_size), built in f32 as
+    the JAX package builds it."""
+    src = (np.arange(out_size, dtype=np.float64) + 0.5) * (in_size / out_size) - 0.5
+    src = np.clip(src, 0.0, in_size - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    w_hi = (src - lo).astype(np.float32)
+    w_lo = 1.0 - w_hi
+    m = np.zeros((out_size, in_size), np.float32)
+    np.add.at(m, (np.arange(out_size), lo), w_lo)
+    np.add.at(m, (np.arange(out_size), hi), w_hi)
+    return m
+
+
+def _resize_host(x: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """Bilinear upsample of NCHW logits on the host, accumulated in f64."""
+    n, c, h, w = x.shape
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return x
+    mh = _resize_matrix_f64(h, oh)
+    mw = _resize_matrix_f64(w, ow)
+    y = np.einsum("oh,nchw->ncow", mh, x.astype(np.float64))
+    return np.einsum("pw,ncow->ncop", mw, y).astype(np.float32)
+
+
+def evaluate_domain(predict_fn, images_u8, od_masks: list[np.ndarray],
+                    oc_masks: list[np.ndarray], label: str | None = "OD",
+                    batch_size: int = 8, timings: dict | None = None) -> dict[str, float]:
+    """Evaluate one test domain.
+
+    Args:
+      predict_fn: from :func:`make_predict_fn`.
+      images_u8: (N, 256, 256, 3) uint8 test images, a numpy array or a
+        tensor (on the card, the chunks are normalised there).
+      od_masks / oc_masks: per-image native-resolution binary masks.
+      label: the validation objective ('OD' / 'OC' / None), Trainer.py:269-274.
+      timings: if given, the seconds spent in the predict (to the end of its
+        device-to-host copy), the host upsample and the host scoring are
+        added under ``predict``, ``upsample`` and ``score``.
+
+    Returns the means of cup_dice, disc_dice, cup_hd, disc_hd, cup_asd,
+    disc_asd, and ``objective`` keyed by ``label``.
+    """
+    n = len(images_u8)
+    images = torch.as_tensor(images_u8)
+    sums = defaultdict(float)
+    spent = defaultdict(float)
+    groups: dict[tuple[int, int], list[int]] = defaultdict(list)
+    for i in range(n):
+        groups[od_masks[i].shape[-2:]].append(i)
+
+    for native_hw, idxs in groups.items():
+        for start in range(0, len(idxs), batch_size):
+            chunk = idxs[start:start + batch_size]
+            t0 = time.perf_counter()
+            sel = torch.as_tensor(chunk, device=images.device)
+            img = images[sel].permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
+            out_od, out_oc = predict_fn(img)
+            logits = torch.stack([out_od, out_oc]).cpu().numpy()
+            t1 = time.perf_counter()
+            od_native = _resize_host(logits[0], native_hw)
+            oc_native = _resize_host(logits[1], native_hw)
+            t2 = time.perf_counter()
+            for j, i in enumerate(chunk):
+                res = _score_one(od_native[j], oc_native[j],
+                                 np.asarray(od_masks[i]).squeeze(),
+                                 np.asarray(oc_masks[i]).squeeze(), label)
+                for k, v in res.items():
+                    sums[k] += v
+            spent["predict"] += t1 - t0
+            spent["upsample"] += t2 - t1
+            spent["score"] += time.perf_counter() - t2
+
+    if timings is not None:
+        for k, v in spent.items():
+            timings[k] = timings.get(k, 0.0) + v
+    out = {k: v / n for k, v in sums.items()}
+    out["objective"] = objective_from_means(out, label)
+    return out
+
+
+def objective_from_means(out: dict, label: str | None) -> float:
+    """The model-selection objective from domain means (Trainer.py:269-288):
+    the trained label's Dice, or the cup/disc mean for the 2-class mode."""
+    if label == "OD":
+        return out["disc_dice"]
+    if label == "OC":
+        return out["cup_dice"]
+    return (out["cup_dice"] + out["disc_dice"]) / 2
+
+
+def _score_one(od_logits: np.ndarray, oc_logits: np.ndarray, od_gt: np.ndarray,
+               oc_gt: np.ndarray, label: str | None) -> dict[str, float]:
+    """Score one image from (C, H, W) logits.
+
+    ``label`` set: C == 1 and channel 0 carries the stage's class.
+    ``label=None`` (the reference's 2-class validation mode): C == 2 in the
+    reference's channel order [cup, disc]; Dice reads disc from the OD model's
+    channel 1 and cup from the OC model's channel 0, while HD/ASD compare
+    channel 0 of each model against the cup GT (Trainer.py:221-239, the
+    reference's own channel choice)."""
+    if label is None:
+        pred_od = postprocess_logits(od_logits, label=None)
+        pred_oc = postprocess_logits(oc_logits, label=None)
+        gt2 = np.stack([oc_gt, od_gt])
+        _, disc_dice = M.dice_coeff_2label(pred_od, gt2, None)
+        cup_dice, _ = M.dice_coeff_2label(pred_oc, gt2, None)
+        pred_od, od_gt = pred_od[0], gt2[0]
+        pred_oc, oc_gt = pred_oc[0], gt2[0]
+    else:
+        pred_od = postprocess_logits(od_logits, label=label)[0]
+        pred_oc = postprocess_logits(oc_logits, label=label)[0]
+        _, disc_dice = M.dice_coeff_2label(pred_od[None], od_gt[None], label)
+        cup_dice, _ = M.dice_coeff_2label(pred_oc[None], oc_gt[None], label)
+
+    as_bool = lambda x: np.asarray(x, dtype=bool)
+
+    def require_nonempty_gt(name, gt):
+        # the empty-prediction sentinel is checked first (Trainer.py:219-233);
+        # medpy meets an empty ground truth only under a non-empty prediction,
+        # and fails there: say why instead
+        if np.asarray(gt).sum() < 1:
+            raise ValueError(
+                f"empty ground-truth mask in the {name} surface-distance "
+                "comparison: the metric is undefined (the reference's medpy "
+                "path fails here too)")
+
+    if pred_oc.sum() < 1e-4:
+        cup_hd = cup_asd = 100.0
+    else:
+        require_nonempty_gt("OC", oc_gt)
+        cup_hd = M.hd95(as_bool(pred_oc), as_bool(oc_gt))
+        cup_asd = M.asd(as_bool(pred_oc), as_bool(oc_gt))
+    if pred_od.sum() < 1e-4:
+        disc_hd = disc_asd = 100.0
+    else:
+        require_nonempty_gt("OD", od_gt)
+        disc_hd = M.hd95(as_bool(pred_od), as_bool(od_gt))
+        disc_asd = M.asd(as_bool(pred_od), as_bool(od_gt))
+    return {"cup_dice": cup_dice, "disc_dice": disc_dice, "cup_hd": cup_hd,
+            "disc_hd": disc_hd, "cup_asd": cup_asd, "disc_asd": disc_asd}

@@ -43,6 +43,11 @@ class WTPSETrainState:
     oc_shape: NetState
     step: int = 0
 
+    def net_states(self) -> tuple[NetState, NetState, NetState, NetState]:
+        """(od, od_shape, oc, oc_shape), the order of the reference's
+        checkpoint keys and of ``make_predict_fn``'s arguments."""
+        return self.od, self.od_shape, self.oc, self.oc_shape
+
 
 def init_ensemble(cfg: ModelConfig, *, device: str | torch.device = "cuda",
                   generator: torch.Generator | None = None,
