@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
 
 1. build the hand-written kernels from ``wt_pse_tpu_torch/csrc`` (nvcc, sm_90a)
-   and print the card's name and power limit;
+   and, at the same time, the native eval operators (``csrc/evalops.cpp``,
+   g++), and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, forward and
    backward, at shapes that reach every variant: the main-path shape
    (9, 16, 256, 256), ragged HW, other C, and a z whose storage starts 4 bytes
@@ -41,7 +42,27 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    of the epoch, the device time of sampling and augmentation). It prints
    the epoch times, steps a second, each validation's time split into the
    predict on the card, the host upsample and the host scoring, the peak
-   device memory, and whether PIL and PyYAML import on this machine.
+   device memory, and whether PIL and PyYAML import on this machine; the
+   validations must have scored on the native operators;
+7. the evaluation path, from phase 6's trained nets and newest checkpoint,
+   each part with the launch counts set to 0 just before and read just after
+   (none launches a covariance kernel but the training epoch of (c)):
+   (a) the native operators against the scipy path on a 640x640 mask (LCC +
+   fill bitwise, surface distances within 1e-5) and their times; (b)
+   ``label_components``, ``largest_component`` and ``fill_holes`` on the card
+   bitwise equal to the CPU on the masks thresholded once from the trained
+   logits of the 8 validation images (and 8 seeded masks, one a path longer
+   than H + W), and ``device_metrics`` within ``f32_reduce``; (c) a
+   ``Trainer(fast_validation=True, train_visualization=True,
+   train_viz_interval=2)`` resumed from the checkpoint trains one epoch and
+   validates on the card; its validation time beside a host validation of
+   the same nets and images, both objectives, and the montage PNGs; (d) the
+   eval CLI (``--save-images``, native scoring) on a synthetic test split
+   written with PIL at native 512x512 and 640x640: its metrics equal
+   ``evaluate_domain`` on the reloaded nets, ``resize='device'`` is within
+   ``f32_reduce`` of the f64 host upsample, 8 overlays and 8 originals; (e)
+   ``load_predictor`` on 8 uint8 images at 412x412: masks (8, 412, 412),
+   finite logits, a steady call timed.
 
 The card's name and power limit follow the build line. The line before the
 last is a JSON ``kernels`` record (``launches`` counted in phase 6); the last
@@ -351,9 +372,10 @@ def synthetic_pools(seed: int = 11):
     return train, val
 
 
-def trainer_path(cc, dev) -> dict:
-    """Phase 6: the Trainer, through its entry points. Returns the launch counts
-    of its run."""
+def trainer_path(cc, dev, tmp: str) -> dict:
+    """Phase 6: the Trainer, through its entry points, in ``tmp``. Returns the
+    launch counts of its run, the trained Trainer, its newest checkpoint and
+    its pools."""
     from torch.profiler import ProfilerActivity, profile
 
     from wt_pse_tpu_torch.config import default_hparams
@@ -372,115 +394,330 @@ def trainer_path(cc, dev) -> dict:
     kw = dict(batch_size=9, interval_validate=1, label="OD", seed=1, eval_batch_size=8,
               val_visualization=False, device=dev)
     nets = lambda st: (ns.net for ns in st.net_states())
-    with tempfile.TemporaryDirectory() as tmp:
-        run = os.path.join(tmp, "run")
-        torch.cuda.reset_peak_memory_stats(dev)
-        trainer = Trainer(hp, train, val, run, max_epoch=EPOCHS, **kw)
+    run = os.path.join(tmp, "run")
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = Trainer(hp, train, val, run, max_epoch=EPOCHS, **kw)
+    torch.cuda.synchronize()
+    cc.covariance_forward.launches = 0
+    cc.covariance_backward.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    wall = time.perf_counter() - t0
+    launches = {"gram": cc.covariance_forward.launches,
+                "dz": cc.covariance_backward.launches}
+    steps = EPOCHS * trainer.iter_per_epoch
+    et = trainer.epoch_seconds
+    steady = statistics.median(et[1:])
+    log(f"trainer ({EPOCHS} epochs x {trainer.iter_per_epoch} steps, 256x256, batch 9 = "
+        f"3x3, f32): {wall:.2f} s in train(); epochs " +
+        ", ".join(f"{t:.3f}" for t in et) + f" s; first {et[0]:.3f} s, steady median "
+        f"{steady:.3f} s = {trainer.iter_per_epoch / steady:.3f} steps/s; the host "
+        f"enqueued the steps in " + ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) +
+        f" s of them; covariance "
+        f"launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    if launches != {"gram": 8 * steps, "dz": 8 * steps}:
+        raise SystemExit(f"expected {8 * steps} gram and dz launches, got {launches}")
+    for i, v in enumerate(trainer.validation_seconds):
+        log(f"validation {i} (8 images, native 512x512 x5 and 640x640 x3): "
+            f"{sum(v.values()):.3f} s = predict on the card {v['predict']:.3f} s + "
+            f"host upsample {v['upsample']:.3f} s + host scoring {v['score']:.3f} s")
+
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    epochs = [r for r in recs if "loss_seg" in r]
+    vals = [{k: v for k, v in r.items() if k.startswith("val/")}
+            for r in recs if "val/objective" in r]
+    with open(os.path.join(run, "log.csv")) as f:
+        rows = f.read().strip().splitlines()[1:]
+    ckpts = sorted(glob.glob(os.path.join(run, "checkpoint_*.pth.tar")),
+                   key=lambda p: int(re.findall(r"_(\d+)\.pth", p)[0]))
+    log("epoch losses: " + json.dumps(
+        [{k: r[k] for k in ("loss_seg", "loss_seg_oc", "loss_kd", "loss_kd_oc")}
+         for r in epochs]))
+    log("validations: " + json.dumps(vals))
+    bad = [r["step"] for r in epochs
+           if not all(math.isfinite(v) for k, v in r.items() if k != "step")]
+    if len(epochs) != EPOCHS or bad:
+        raise SystemExit(f"{len(epochs)} epoch records, non-finite at epochs {bad}")
+    if len(rows) != EPOCHS:
+        raise SystemExit(f"log.csv has {len(rows)} rows, not {EPOCHS}")
+    if len(vals) != 2 or any(len(v) != 7 or not all(map(math.isfinite, v.values()))
+                             for v in vals):
+        raise SystemExit(f"expected 2 validations of 7 finite metrics, got {vals}")
+    if not ckpts or not os.path.exists(os.path.join(run, "best.json")):
+        raise SystemExit("no checkpoint or no best.json")
+    log(f"validations scored on: {trainer.scoring_backend}")
+    if trainer.scoring_backend != "native":
+        raise SystemExit(f"validation scored on {trainer.scoring_backend}, not the "
+                         "native operators")
+
+    # the trained nets, saved and reloaded into fresh nets, predict bitwise equal
+    cfg = ModelConfig.from_hparams(hp)
+    final = os.path.join(tmp, "final.pth.tar")
+    save_ensemble(final, trainer.state)
+    images = trainer.val_images.permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
+    want = make_predict_fn(*nets(trainer.state), device=dev)(images)
+    strict = restore_ensemble(final, init_ensemble(
+        cfg, device=dev, generator=torch.Generator().manual_seed(5)))
+    partial = init_ensemble(cfg, device=dev, generator=torch.Generator().manual_seed(6))
+    counts = load_reference_checkpoint(final, partial, strict=True)
+    for what, st in (("strict load", strict), ("filtered partial load", partial)):
+        got = make_predict_fn(*nets(st), device=dev)(images)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"reloaded checkpoint ({what}) predicts bitwise equal: {same}")
+        if not same:
+            raise SystemExit(f"the checkpoint reloaded by {what} predicts otherwise")
+    log(f"filtered partial load matched leaves: {counts}")
+    if list(counts.values()) != [336, 158, 336, 158]:
+        raise SystemExit(f"expected 336/158/336/158 matched leaves, got {counts}")
+
+    # resume from the newest checkpoint; its one more epoch is profiled
+    n = int(re.findall(r"_(\d+)\.pth", ckpts[-1])[0])
+    with open(os.path.join(run, "best.json")) as f:
+        best = json.load(f)
+    resumed = Trainer(hp, train, val, os.path.join(tmp, "resumed"), max_epoch=n + 1,
+                      stop_epoch=n, resume=ckpts[-1], **kw)
+    if resumed.epoch != n or resumed.best["objective"] != best["objective"]:
+        raise SystemExit(f"resume from {ckpts[-1]} starts at epoch {resumed.epoch} with "
+                         f"best {resumed.best}, not epoch {n} with {best}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        resumed.train()
         torch.cuda.synchronize()
-        cc.covariance_forward.launches = 0
-        cc.covariance_backward.launches = 0
-        t0 = time.perf_counter()
-        trainer.train()
-        wall = time.perf_counter() - t0
-        launches = {"gram": cc.covariance_forward.launches,
-                    "dz": cc.covariance_backward.launches}
-        steps = EPOCHS * trainer.iter_per_epoch
-        et = trainer.epoch_seconds
-        steady = statistics.median(et[1:])
-        log(f"trainer ({EPOCHS} epochs x {trainer.iter_per_epoch} steps, 256x256, batch 9 = "
-            f"3x3, f32): {wall:.2f} s in train(); epochs " +
-            ", ".join(f"{t:.3f}" for t in et) + f" s; first {et[0]:.3f} s, steady median "
-            f"{steady:.3f} s = {trainer.iter_per_epoch / steady:.3f} steps/s; the host "
-            f"enqueued the steps in " + ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) +
-            f" s of them; covariance "
-            f"launches {launches}; peak device memory "
-            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
-        if launches != {"gram": 8 * steps, "dz": 8 * steps}:
-            raise SystemExit(f"expected {8 * steps} gram and dz launches, got {launches}")
-        for i, v in enumerate(trainer.validation_seconds):
-            log(f"validation {i} (8 images, native 512x512 x5 and 640x640 x3): "
-                f"{sum(v.values()):.3f} s = predict on the card {v['predict']:.3f} s + "
-                f"host upsample {v['upsample']:.3f} s + host scoring {v['score']:.3f} s")
-
-        with open(os.path.join(run, "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-        epochs = [r for r in recs if "loss_seg" in r]
-        vals = [{k: v for k, v in r.items() if k.startswith("val/")}
-                for r in recs if "val/objective" in r]
-        with open(os.path.join(run, "log.csv")) as f:
-            rows = f.read().strip().splitlines()[1:]
-        ckpts = sorted(glob.glob(os.path.join(run, "checkpoint_*.pth.tar")),
-                       key=lambda p: int(re.findall(r"_(\d+)\.pth", p)[0]))
-        log("epoch losses: " + json.dumps(
-            [{k: r[k] for k in ("loss_seg", "loss_seg_oc", "loss_kd", "loss_kd_oc")}
-             for r in epochs]))
-        log("validations: " + json.dumps(vals))
-        bad = [r["step"] for r in epochs
-               if not all(math.isfinite(v) for k, v in r.items() if k != "step")]
-        if len(epochs) != EPOCHS or bad:
-            raise SystemExit(f"{len(epochs)} epoch records, non-finite at epochs {bad}")
-        if len(rows) != EPOCHS:
-            raise SystemExit(f"log.csv has {len(rows)} rows, not {EPOCHS}")
-        if len(vals) != 2 or any(len(v) != 7 or not all(map(math.isfinite, v.values()))
-                                 for v in vals):
-            raise SystemExit(f"expected 2 validations of 7 finite metrics, got {vals}")
-        if not ckpts or not os.path.exists(os.path.join(run, "best.json")):
-            raise SystemExit("no checkpoint or no best.json")
-
-        # the trained nets, saved and reloaded into fresh nets, predict bitwise equal
-        cfg = ModelConfig.from_hparams(hp)
-        final = os.path.join(tmp, "final.pth.tar")
-        save_ensemble(final, trainer.state)
-        images = trainer.val_images.permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
-        want = make_predict_fn(*nets(trainer.state), device=dev)(images)
-        strict = restore_ensemble(final, init_ensemble(
-            cfg, device=dev, generator=torch.Generator().manual_seed(5)))
-        partial = init_ensemble(cfg, device=dev, generator=torch.Generator().manual_seed(6))
-        counts = load_reference_checkpoint(final, partial, strict=True)
-        for what, st in (("strict load", strict), ("filtered partial load", partial)):
-            got = make_predict_fn(*nets(st), device=dev)(images)
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            log(f"reloaded checkpoint ({what}) predicts bitwise equal: {same}")
-            if not same:
-                raise SystemExit(f"the checkpoint reloaded by {what} predicts otherwise")
-        log(f"filtered partial load matched leaves: {counts}")
-        if list(counts.values()) != [336, 158, 336, 158]:
-            raise SystemExit(f"expected 336/158/336/158 matched leaves, got {counts}")
-
-        # resume from the newest checkpoint; its one more epoch is profiled
-        n = int(re.findall(r"_(\d+)\.pth", ckpts[-1])[0])
-        with open(os.path.join(run, "best.json")) as f:
-            best = json.load(f)
-        resumed = Trainer(hp, train, val, os.path.join(tmp, "resumed"), max_epoch=n + 1,
-                          stop_epoch=n, resume=ckpts[-1], **kw)
-        if resumed.epoch != n or resumed.best["objective"] != best["objective"]:
-            raise SystemExit(f"resume from {ckpts[-1]} starts at epoch {resumed.epoch} with "
-                             f"best {resumed.best}, not epoch {n} with {best}")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            resumed.train()
-            torch.cuda.synchronize()
-        with open(os.path.join(tmp, "resumed", "log.csv")) as f:
-            rows = f.read().strip().splitlines()[1:]
-        if len(rows) != 1 or rows[0].split(",")[0] != str(n):
-            raise SystemExit(f"the resumed run logged {rows}, not one row of epoch {n}")
-        busy, window, _, _ = device_time(prof)
-        ranges = [e for e in prof.events() if e.name == BATCH_RANGE
-                  and e.device_type != torch.autograd.DeviceType.CUDA]
-        batch_us = sum(e.device_time_total for e in ranges)
-        batch_host_us = sum(e.cpu_time_total for e in ranges)
-        log(f"resumed at epoch {n} (best objective {best['objective']:.6f} restored), one "
-            f"more epoch traced: {resumed.epoch_seconds[0]:.3f} s traced; device busy "
-            f"{busy / 1e6:.3f} s = {busy / 1e6 / steady:.1%} of the untraced steady "
-            f"{steady:.3f} s epoch, {busy / window:.1%} of the traced first-to-last-kernel "
-            f"window; sampling and augmentation {batch_us / 1e3:.3f} ms of device time "
-            f"({batch_us / busy:.2%} of busy) and {batch_host_us / 1e3:.3f} ms of host time "
-            f"({batch_host_us / 1e6 / resumed.epoch_seconds[0]:.2%} of the traced epoch)")
+    with open(os.path.join(tmp, "resumed", "log.csv")) as f:
+        rows = f.read().strip().splitlines()[1:]
+    if len(rows) != 1 or rows[0].split(",")[0] != str(n):
+        raise SystemExit(f"the resumed run logged {rows}, not one row of epoch {n}")
+    busy, window, _, _ = device_time(prof)
+    ranges = [e for e in prof.events() if e.name == BATCH_RANGE
+              and e.device_type != torch.autograd.DeviceType.CUDA]
+    batch_us = sum(e.device_time_total for e in ranges)
+    batch_host_us = sum(e.cpu_time_total for e in ranges)
+    log(f"resumed at epoch {n} (best objective {best['objective']:.6f} restored), one "
+        f"more epoch traced: {resumed.epoch_seconds[0]:.3f} s traced; device busy "
+        f"{busy / 1e6:.3f} s = {busy / 1e6 / steady:.1%} of the untraced steady "
+        f"{steady:.3f} s epoch, {busy / window:.1%} of the traced first-to-last-kernel "
+        f"window; sampling and augmentation {batch_us / 1e3:.3f} ms of device time "
+        f"({batch_us / busy:.2%} of busy) and {batch_host_us / 1e3:.3f} ms of host time "
+        f"({batch_host_us / 1e6 / resumed.epoch_seconds[0]:.2%} of the traced epoch)")
     host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
                   key=lambda e: -e.self_cpu_time_total)
     log("host time of the traced epoch by op (self, top 12): " + "; ".join(
         f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}" for e in host[:12]))
-    return launches
+    return {"launches": launches, "trainer": trainer, "checkpoint": ckpts[-1],
+            "train": train, "val": val}
+
+
+def blob_masks(b: int = 8, hw: int = 256, seed: int = 13) -> np.ndarray:
+    """Seeded (B, H, W) bool masks: disks with specks and a hole, and in the
+    last item a serpentine path longer than H + W (the capped propagation)."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    m = np.zeros((b, hw, hw), bool)
+    for i in range(b - 1):
+        for _ in range(4):
+            cy, cx = r.randint(hw // 8, hw - hw // 8, 2)
+            rad = r.randint(hw // 40, hw // 6)
+            m[i] |= (yy - cy) ** 2 + (xx - cx) ** 2 <= rad * rad
+        m[i] |= r.rand(hw, hw) > 0.995
+        m[i, hw // 2 - 3:hw // 2 + 3, hw // 2 - 3:hw // 2 + 3] = False
+    for k, y in enumerate(range(1, hw - 1, 2)):
+        m[-1, y, 1:hw - 1] = True
+        if y + 1 < hw - 1:
+            m[-1, y + 1, hw - 2 if k % 2 == 0 else 1] = True
+    return m
+
+
+def timed(fn):
+    """(result, host seconds) of ``fn()``, ended by a synchronize."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def write_test_split(root: str, val) -> None:
+    """Phase 7's synthetic Fundus test split, with PIL, in the layout
+    ``data/fundus.py`` reads: ``Domain3/test/ROIs/{image,mask}/G_<i>.png``,
+    each image the validation image resized to its label's native size."""
+    from PIL import Image
+
+    for sub in ("image", "mask"):
+        os.makedirs(os.path.join(root, "Domain3", "test", "ROIs", sub), exist_ok=True)
+    for i, (img, lab) in enumerate(zip(val.images, val.labels)):
+        hw = lab.shape[-1]
+        Image.fromarray(img).resize((hw, hw), Image.BICUBIC).save(
+            os.path.join(root, "Domain3", "test", "ROIs", "image", f"G_{i}.png"))
+        Image.fromarray(lab).save(os.path.join(root, "Domain3", "test", "ROIs", "mask", f"G_{i}.png"))
+
+
+def eval_path(cc, dev, tmp: str, p6: dict) -> None:
+    """Phase 7: the evaluation path on the card, from phase 6's trained nets
+    and newest checkpoint. Each part is driven with the covariance launch
+    counts set to 0 just before and read just after."""
+    from wt_pse_tpu_torch import native
+    from wt_pse_tpu_torch.api import load_predictor
+    from wt_pse_tpu_torch.cli import test_visualization as eval_cli
+    from wt_pse_tpu_torch.config import default_hparams
+    from wt_pse_tpu_torch.data.fundus import encode_masks, load_fundus
+    from wt_pse_tpu_torch.ops import metrics as M
+    from wt_pse_tpu_torch.ops import postprocess as PP
+    from wt_pse_tpu_torch.ops import postprocess_device as PD
+    from wt_pse_tpu_torch.train.eval import (_resize_host, evaluate_domain, make_predict_fn,
+                                             resize_device)
+    from wt_pse_tpu_torch.train.eval_device import device_metrics
+    from wt_pse_tpu_torch.train.trainer import Trainer
+
+    def counted(what, fn, expect=0):
+        cc.covariance_forward.launches = cc.covariance_backward.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = (cc.covariance_forward.launches, cc.covariance_backward.launches)
+        log(f"phase 7 {what}: covariance launches (gram, dz) {got}")
+        if got != (expect, expect):
+            raise SystemExit(f"phase 7 {what}: expected {expect} launches of each kernel, got {got}")
+        return out
+
+    hp = default_hparams("WT_PSE")
+    trainer, ckpt, val = p6["trainer"], p6["checkpoint"], p6["val"]
+    nets = tuple(ns.net for ns in trainer.state.net_states())
+
+    # (a) the native operators: built with g++ here, the scoring backend
+    t0 = time.perf_counter()
+    lib = native.build()
+    log(f"phase 7 (a): native library {lib.name} ready in {time.perf_counter() - t0:.2f} s; "
+        f"scoring backend {native.scoring_backend('native')}")
+    m640 = blob_masks(2, 640, seed=14)
+    m640[1] = np.roll(m640[0], 5, axis=1)
+    lcc_n, t_lcc_n = timed(lambda: PP.largest_component_fill_holes(m640[0], backend="native"))
+    lcc_s, t_lcc_s = timed(lambda: PP.largest_component_fill_holes(m640[0], backend="scipy"))
+    sd_n, t_sd_n = timed(lambda: M.surface_distances(m640[0], m640[1], backend="native"))
+    sd_s, t_sd_s = timed(lambda: M.surface_distances(m640[0], m640[1], backend="scipy"))
+    sd_err = float(np.abs(sd_n - sd_s).max() / max(1.0, np.abs(sd_s).max()))
+    log(f"phase 7 (a) on a 640x640 mask: LCC + fill native {t_lcc_n * 1e3:.2f} ms, scipy "
+        f"{t_lcc_s * 1e3:.2f} ms, bitwise equal {np.array_equal(lcc_n, lcc_s)}; surface "
+        f"distances ({len(sd_s)}) native {t_sd_n * 1e3:.2f} ms, scipy {t_sd_s * 1e3:.2f} ms, "
+        f"max error / max(1, range) {sd_err:.2e} (tolerance 1e-5)")
+    if not np.array_equal(lcc_n, lcc_s) or sd_err > 1e-5:
+        raise SystemExit("the native operators disagree with the scipy path")
+
+    # (b) post-processing on the card against the same functions on the CPU
+    predict = make_predict_fn(*nets, device=dev)
+    images = trainer.val_images.permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
+    od, oc = predict(images)
+    logits = torch.cat([od[:, 0], oc[:, 0]])
+    size = logits.shape[-1]
+    binary = torch.cat([torch.sigmoid(logits) > 0.75,  # thresholded once
+                        torch.from_numpy(blob_masks(hw=size)).to(dev)])
+
+    def post_card():
+        return [fn(binary) for fn in (PD.label_components, PD.largest_component, PD.fill_holes)]
+
+    card = counted("(b) device post-processing", post_card)
+    cpu = [fn(binary.cpu()) for fn in (PD.label_components, PD.largest_component, PD.fill_holes)]
+    same = [torch.equal(a.cpu(), b) for a, b in zip(card, cpu)]
+    log(f"phase 7 (b): label_components / largest_component / fill_holes on the card equal "
+        f"the CPU bitwise: {same} ({int(binary[:16].flatten(1).any(1).sum())} of 16 trained "
+        f"masks non-empty, plus 8 seeded)")
+    if not all(same):
+        raise SystemExit("device post-processing on the card differs from the CPU")
+    from PIL import Image
+
+    gts = [encode_masks(np.asarray(Image.fromarray(lab).resize((size, size)), np.uint8))
+           for lab in val.labels]  # as the Trainer resizes them
+    gt_od = torch.from_numpy(np.stack([g[0] for g in gts])).to(dev)
+    gt_oc = torch.from_numpy(np.stack([g[1] for g in gts])).to(dev)
+    got = device_metrics(od[:, 0], oc[:, 0], gt_od, gt_oc)
+    want = device_metrics(od[:, 0].cpu(), oc[:, 0].cpu(), gt_od.cpu(), gt_oc.cpu())
+    near = int(((logits - math.log(3.0)).abs() < 1e-6).sum())
+    worst = max(float(((got[k].cpu() - v).abs() / (1e-9 + F32_REDUCE_RTOL * v.abs())).max())
+                for k, v in want.items())
+    log(f"phase 7 (b): device_metrics on the card vs the CPU, worst error / f32_reduce "
+        f"{worst:.3f}; {near} logits within 1e-6 of ln 3")
+    if worst > 1.0 and near == 0:
+        raise SystemExit("device_metrics on the card disagrees with the CPU")
+
+    # (c) fast validation and the montage, resumed from the checkpoint
+    n = int(re.findall(r"_(\d+)\.pth", ckpt)[0])
+    run = os.path.join(tmp, "fast")
+    batch = trainer.per_domain_batch * trainer.domain_num
+    fast = Trainer(hp, p6["train"], val, run, batch_size=batch, interval_validate=1, label="OD",
+                   seed=1, eval_batch_size=8, val_visualization=False, device=dev,
+                   image_size=size, max_epoch=n + 1, resume=ckpt, fast_validation=True,
+                   train_visualization=True, train_viz_interval=2)
+    steps = fast.iter_per_epoch
+    if fast.epoch != n:
+        raise SystemExit(f"the resume from {ckpt} starts at epoch {fast.epoch}, not {n}")
+    counted("(c) one epoch with fast validation and the montage", fast.train, 8 * steps)
+    shots = sum(1 for g in range(n * steps, (n + 1) * steps) if g % 2 == 0)
+    pngs = len(glob.glob(os.path.join(run, "images", "train_*.png")))
+    fast_nets = tuple(ns.net for ns in fast.state.net_states())
+    fast_predict = make_predict_fn(*fast_nets, device=dev)
+    fast_again, t_fast = timed(fast.validate)
+    host_t: dict[str, float] = {}
+    host_val, t_host = timed(lambda: evaluate_domain(
+        fast_predict, fast.val_images, fast.val_od, fast.val_oc, "OD", 8, timings=host_t,
+        backend="native"))
+    log(f"phase 7 (c): resumed at epoch {n}, one epoch of {steps} steps; fast validation "
+        f"{fast.validation_seconds[0]['device']:.3f} s in train(), again {t_fast:.3f} s "
+        f"(objective {fast_again['objective']:.6f}, scored on {fast.scoring_backend}); host "
+        f"validation of the same nets and images {t_host:.3f} s = predict "
+        f"{host_t['predict']:.3f} + upsample {host_t['upsample']:.3f} + scoring "
+        f"{host_t['score']:.3f} (objective {host_val['objective']:.6f}, native); "
+        f"{pngs} montage PNGs ({shots} montages of 4)")
+    if fast.scoring_backend != "device" or pngs != 4 * shots or not all(
+            math.isfinite(v) for v in list(fast_again.values()) + list(host_val.values())):
+        raise SystemExit("fast validation or the montage failed")
+
+    # (d) the eval CLI on a synthetic test split at native 512 and 640
+    root, out = os.path.join(tmp, "fundus"), os.path.join(tmp, "vis")
+    write_test_split(root, val)
+    argv = ["--device", dev.type, "--datasetTest", "3", "--label", "OD", "--data-dir", root,
+            "--model-file", ckpt, "--out", out, "--batch-size", "8", "--save-images"]
+    if native.scoring_backend("auto") != "native":  # what the CLI scores on
+        raise SystemExit(f"the eval CLI would score on scipy: {native.unavailable_reason()}")
+    res, t_cli = timed(lambda: counted("(d) the eval CLI", lambda: eval_cli.main(argv)))
+    reloaded = eval_cli.build_networks(ckpt, hp, device=dev)
+    cli_predict = make_predict_fn(*reloaded, device=dev)
+    domain = load_fundus(root, "test", [3], state="prediction")
+    masks = [encode_masks(np.asarray(lab, np.uint8)) for lab in domain.labels]
+    dom_images = torch.from_numpy(np.asarray(domain.images)).to(dev)
+    direct = evaluate_domain(cli_predict, dom_images, [m[0] for m in masks],
+                             [m[1] for m in masks], "OD", 8, backend="native")
+    dev_t: dict[str, float] = {}
+    on_card, t_dev = timed(lambda: evaluate_domain(
+        cli_predict, dom_images, [m[0] for m in masks], [m[1] for m in masks], "OD", 8,
+        timings=dev_t, resize="device", backend="native"))
+    chunk = dom_images[5:].permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
+    lg = cli_predict(chunk)[0]
+    up = resize_device(lg, (640, 640)).cpu().numpy()
+    up_err = float(np.abs(up - _resize_host(lg.cpu().numpy(), (640, 640))).max()
+                   / np.abs(up).max())
+    files = {sub: len(os.listdir(os.path.join(out, sub))) for sub in ("overlay", "original_image")}
+    log(f"phase 7 (d): eval CLI {t_cli:.3f} s (load, predict, native scoring, 8 overlays): "
+        f"{json.dumps(res)}; evaluate_domain on the reloaded nets equal: {res == direct}; "
+        f"resize='device' {t_dev:.3f} s (predict + upsample on the card "
+        f"{dev_t['predict']:.3f} s, scoring {dev_t['score']:.3f} s) objective "
+        f"{on_card['objective']:.6f}; device vs host f64 upsample at 640, error / max|logit| "
+        f"{up_err:.2e} (f32_reduce {F32_REDUCE_RTOL}); files {files}")
+    if res != direct or up_err > F32_REDUCE_RTOL or files != {"overlay": 8, "original_image": 8}:
+        raise SystemExit("the eval CLI check failed")
+
+    # (e) load_predictor on 412x412 uint8 images
+    imgs412 = np.stack([np.asarray(Image.fromarray(im).resize((412, 412), Image.BICUBIC))
+                        for im in val.images])
+    predictor = load_predictor(ckpt, device=dev)
+    first, t_first = timed(lambda: counted("(e) load_predictor", lambda: predictor(imgs412)))
+    steady = [timed(lambda: predictor(imgs412))[1] for _ in range(3)]
+    ok = (first["od"].shape == first["oc"].shape == (8, 412, 412)
+          and np.isfinite(first["od_logits"]).all() and np.isfinite(first["oc_logits"]).all())
+    log(f"phase 7 (e): load_predictor on 8 uint8 images at 412x412: masks "
+        f"{first['od'].shape}, logits {first['od_logits'].shape} finite {ok}; first call "
+        f"{t_first:.3f} s, steady " + ", ".join(f"{t:.3f}" for t in steady) + " s; od mask "
+        f"share {float(first['od'].mean()):.4f}")
+    if not ok:
+        raise SystemExit("load_predictor returned the wrong shapes or non-finite logits")
 
 
 def time_in_turns(fns, flush, iters: int = 30) -> list[float]:
@@ -586,9 +823,16 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from wt_pse_tpu_torch import native
+
     t0 = time.perf_counter()
-    lib, compiler_out = cc.build()
-    log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:  # nvcc and g++ at once
+        cuda_build, native_build = pool.submit(cc.build), pool.submit(native.build)
+        lib, compiler_out = cuda_build.result()
+        native_lib = native_build.result()
+    log(f"built {lib.name} and {native_lib.name} in {time.perf_counter() - t0:.1f} s")
     for line in compiler_out.splitlines():  # each kernel's name, then its numbers
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
@@ -600,9 +844,11 @@ def main() -> int:
     check_against_cpu(dev)
     main_path(cc, dev)
     rows = time_kernels(cc, dev, errs)
-    launches = trainer_path(cc, dev)
-    for row in rows:  # the count of the slice's main path, the trainer's run
-        row["launches"] = launches[row["name"].split("_")[1]]
+    with tempfile.TemporaryDirectory() as tmp:
+        p6 = trainer_path(cc, dev, tmp)
+        eval_path(cc, dev, tmp, p6)
+    for row in rows:  # the count of the trainer's run (phase 6)
+        row["launches"] = p6["launches"][row["name"].split("_")[1]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,10 @@ The kernels are held against their plain versions at tolerance class
 entry against ``sqrt(cov_cc * cov_dd)``, dz against its largest magnitude);
 a step on the card against the same step on the CPU at class ``conv``;
 augmentation with injected draws against the CPU (images at ``f32_reduce``,
-masks exact); one Trainer epoch and a validation on the card.
+masks exact); one Trainer epoch and a validation on the card; the device
+post-processing on the card bitwise equal to the CPU, ``device_metrics`` at
+``f32_reduce`` (Dice exact), the device upsample within ``f32_reduce`` of the
+f64 host one, and a Trainer epoch with fast validation and the montage.
 """
 
 import numpy as np
@@ -183,3 +186,77 @@ def test_trainer_epoch_and_validation_on_the_card(cuda, tmp_path):
     assert "loss_seg" in rec and "NaN" not in rec and "Infinity" not in rec
     val_out = trainer.validate()
     assert len(val_out) == 7 and all(np.isfinite(v) for v in val_out.values())
+
+
+def _blob_masks(b=4, hw=64, seed=9):
+    """Seeded blobs with specks and a hole, and a serpentine path longer than
+    H + W (the capped propagation), as (B, H, W) bool."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    m = np.zeros((b, hw, hw), bool)
+    for i in range(b - 1):
+        for _ in range(4):
+            cy, cx, rad = r.randint(6, hw - 6), r.randint(6, hw - 6), r.randint(3, 12)
+            m[i] |= (yy - cy) ** 2 + (xx - cx) ** 2 <= rad * rad
+        m[i] |= r.rand(hw, hw) > 0.98
+        m[i, 30:33, 30:33] = False
+    for k, y in enumerate(range(1, hw - 1, 2)):
+        m[-1, y, 1:hw - 1] = True
+        if y + 1 < hw - 1:
+            m[-1, y + 1, hw - 2 if k % 2 == 0 else 1] = True
+    return m
+
+
+def test_device_postprocessing_on_the_card_equals_the_cpu(cuda):
+    from wt_pse_tpu_torch.ops import postprocess_device as PD
+
+    m = torch.from_numpy(_blob_masks())
+    for fn in (PD.label_components, PD.largest_component, PD.fill_holes):
+        assert torch.equal(fn(m.to(cuda)).cpu(), fn(m)), fn.__name__
+
+
+def test_device_metrics_on_the_card_match_the_cpu(cuda):
+    from wt_pse_tpu_torch.train.eval_device import device_metrics
+
+    r = np.random.RandomState(10)
+    m = _blob_masks(seed=10)
+    logits = torch.from_numpy(np.where(m, 6.0, -6.0).astype(np.float32)
+                              + r.randn(*m.shape).astype(np.float32))
+    gt = torch.from_numpy(np.roll(m, 2, axis=2).astype(np.float32))
+    cpu = device_metrics(logits, logits, gt, gt)
+    card = device_metrics(*(t.to(cuda) for t in (logits, logits, gt, gt)))
+    for k, v in cpu.items():
+        got = card[k].cpu()
+        if k.endswith("dice"):
+            assert torch.equal(got, v), k
+        else:
+            assert_scaled_close(got, v)
+
+
+def test_resize_device_on_the_card_matches_the_host_f64(cuda):
+    from wt_pse_tpu_torch.train.eval import _resize_host, resize_device
+
+    x = np.random.RandomState(11).randn(2, 1, 256, 256).astype(np.float32) * 6
+    for hw in ((512, 512), (640, 640)):
+        got = resize_device(torch.from_numpy(x).to(cuda), hw).cpu().numpy()
+        want = _resize_host(x, hw)
+        assert np.abs(got - want).max() <= F32_REDUCE_RTOL * np.abs(want).max(), hw
+
+
+def test_fast_validation_and_the_montage_on_the_card(cuda, tmp_path):
+    r = np.random.RandomState(12)
+    yy, xx = np.mgrid[0:64, 0:64]
+    gray = np.full((64, 64), 255, np.uint8)
+    gray[(yy - 32) ** 2 + (xx - 32) ** 2 < 300] = 128
+    gray[(yy - 32) ** 2 + (xx - 32) ** 2 < 80] = 0
+    doms = [FundusDomain(images=r.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8),
+                         labels=np.stack([gray] * 4)) for _ in range(3)]
+    val = FundusDomain(images=doms[0].images[:3], labels=[np.kron(gray, np.ones((2, 2), np.uint8))] * 3)
+    trainer = Trainer(default_hparams("WT_PSE"), doms, val, str(tmp_path / "run"), batch_size=6,
+                      max_epoch=1, image_size=64, val_visualization=False, fast_validation=True,
+                      train_visualization=True, train_viz_interval=1, device=cuda)
+    trainer.train()
+    out = trainer.validate()
+    assert trainer.scoring_backend == "device"
+    assert len(out) == 7 and all(np.isfinite(v) for v in out.values())
+    assert len(list((tmp_path / "run" / "images").glob("train_*.png"))) == 4 * trainer.iter_per_epoch

@@ -17,6 +17,7 @@ import wt_pse_tpu.native as jax_native
 from wt_pse_tpu.ops import metrics as JM
 from wt_pse_tpu.ops import postprocess as JP
 from wt_pse_tpu.train import eval as JE
+from wt_pse_tpu_torch import native as port_native
 from wt_pse_tpu_torch.ops import metrics as M
 from wt_pse_tpu_torch.ops import postprocess as PP
 from wt_pse_tpu_torch.train import eval as E
@@ -26,8 +27,10 @@ from torch_port import torch_single_thread  # noqa: F401
 
 @pytest.fixture
 def scipy_only(monkeypatch):
-    """The JAX package's metrics on their scipy path, the one the port copies."""
+    """Both packages' metrics on their scipy paths: the port's copy of the
+    JAX package's."""
     monkeypatch.setattr(jax_native, "AVAILABLE", False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
 
 
 def _disk(hw, cy, cx, r):
@@ -162,3 +165,45 @@ def test_validation_montage_matches_jax(tmp_path):
     assert got.endswith(os.path.join("visualization", "epoch_3.png"))
     with open(got, "rb") as a, open(want, "rb") as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("out_hw", [(512, 512), (640, 640)])
+def test_resize_device_matches_jax_and_the_host_f64(out_hw):
+    """The device upsample (two f32 products with the host's resize
+    matrices) against the f64 host upsample at the Fundus label sizes:
+    within ``f32_reduce``. This decides the formulation:
+    ``F.interpolate(mode="bilinear", align_corners=False)`` and the JAX
+    package's device ``_resize_logits`` take the same taps but weigh them
+    from f32 coordinates, and at 640 land 2e-5 of the range away: they are
+    held at 1e-4."""
+    import torch.nn.functional as F
+
+    from torch_port import F32_REDUCE, assert_close
+
+    x = np.random.RandomState(7).randn(2, 1, 256, 256).astype(np.float32) * 6
+    got = E.resize_device(torch.from_numpy(x), out_hw).numpy()
+    interp = F.interpolate(torch.from_numpy(x), size=out_hw, mode="bilinear",
+                           align_corners=False).numpy()
+    assert_close(interp, got, (1e-4, 0), "F.interpolate, at a looser class")
+    host = E._resize_host(x, out_hw)
+    jax_dev = np.transpose(np.asarray(JE._resize_logits(np.transpose(x, (0, 2, 3, 1)), out_hw)),
+                           (0, 3, 1, 2))
+    assert_close(got, host, F32_REDUCE, "device vs host f64")
+    assert_close(jax_dev, got, (1e-4, 0), "JAX _resize_logits, at a looser class")
+
+
+def test_evaluate_domain_resize_device_scores_as_the_host():
+    images, od_masks, oc_masks = _stub_domain()
+
+    def port_predict(img):
+        return 8.0 * img[:, 0:1], 8.0 * img[:, 1:2]
+
+    host = E.evaluate_domain(port_predict, images, od_masks, oc_masks, "OD", batch_size=3)
+    timings = {}
+    dev = E.evaluate_domain(port_predict, images, od_masks, oc_masks, "OD", batch_size=3,
+                            timings=timings, resize="device")
+    assert timings["upsample"] < timings["predict"]
+    for k in host:
+        assert dev[k] == pytest.approx(host[k], rel=1e-6, abs=1e-9), k
+    with pytest.raises(ValueError, match="resize"):
+        E.evaluate_domain(port_predict, images, od_masks, oc_masks, resize="gpu")

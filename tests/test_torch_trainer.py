@@ -180,15 +180,19 @@ def test_resume_after_epoch_3_continues_bitwise(runs):
 
 
 @pytest.mark.parametrize("bad", ["label_none", "batch_below_domains", "dp", "joint",
-                                 "fast_validation", "train_visualization"])
+                                 "bf16", "train_viz_interval"])
 def test_unsupported_configurations_raise(tmp_path, bad):
+    """fast_validation and train_visualization are ported (tests/
+    test_torch_eval_device.py, tests/test_torch_train_montage.py); bf16 is not."""
     dom = FundusDomain(images=np.zeros((2, SIZE, SIZE, 3), np.uint8),
                        labels=np.full((2, SIZE, SIZE), 255, np.uint8))
     kw = {"label_none": dict(label=None), "batch_below_domains": dict(batch_size=2),
           "dp": dict(dp=True), "joint": dict(algorithm="Unet_nips2023_joint_shape_regularization"),
-          "fast_validation": dict(fast_validation=True),
-          "train_visualization": dict(train_visualization=True)}[bad]
-    err = ValueError if bad in ("label_none", "batch_below_domains") else NotImplementedError
-    with pytest.raises(err):
-        Trainer(default_hparams("WT_PSE"), [dom] * 3, dom, str(tmp_path / "x"),
+          "bf16": dict(hparams=dict(default_hparams("WT_PSE"), compute_dtype="bfloat16")),
+          "train_viz_interval": dict(train_visualization=True, train_viz_interval=0)}[bad]
+    err = (ValueError if bad in ("label_none", "batch_below_domains", "train_viz_interval")
+           else NotImplementedError)
+    kw.setdefault("hparams", default_hparams("WT_PSE"))
+    with pytest.raises(err, match=None if err is ValueError else "ROADMAP.md"):
+        Trainer(train_domains=[dom] * 3, val_domain=dom, out_dir=str(tmp_path / "x"),
                 device="cpu", **kw)

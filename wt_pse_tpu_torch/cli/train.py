@@ -7,8 +7,8 @@
 It runs on the card (``-g`` picks its index) unless ``--device cpu`` is given,
 trains ``--running_times`` times and prints the mean±std of the 6 best
 metrics (train.py:174-175). Flags of slices not ported yet (``--dp``,
-``--fast-validation``, ``--train-visualization``) are accepted and make the
-Trainer raise ``NotImplementedError``.
+``--dp-devices``) are accepted and make the Trainer raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -84,11 +84,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write every iteration's scalars to metrics.jsonl "
                         "(kind=step records)")
     p.add_argument("--train-visualization", action="store_true",
-                   help="train image grids (not ported yet: raises)")
+                   help="log train image grids (ROI image, attention, OC target and "
+                        "prediction of a batch's first sample) under images/")
     p.add_argument("--train-viz-interval", type=int, default=30,
-                   help="iterations between train image grids (not ported yet)")
+                   help="iterations between train image grids")
     p.add_argument("--fast-validation", action="store_true",
-                   help="on-device validation metrics (not ported yet: raises)")
+                   help="validate on the device at network resolution instead of "
+                        "at native resolution on the host")
     p.add_argument("--nan-recovery", action="store_true",
                    help="roll back to the last finite epoch instead of raising on a "
                         "non-finite loss")
@@ -185,6 +187,7 @@ def main(args=None, left_argv=None):
             tensorboard=args.tensorboard,
             per_step_logging=args.per_step_logging,
             train_visualization=args.train_visualization,
+            train_viz_interval=args.train_viz_interval,
             fast_validation=args.fast_validation,
             nan_recovery=args.nan_recovery,
             dp=args.dp,

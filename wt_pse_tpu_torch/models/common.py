@@ -32,7 +32,8 @@ class ModelConfig:
         dtype = hparams.get("compute_dtype", None)
         if dtype not in (None, "float32"):
             raise NotImplementedError(
-                f"compute_dtype={dtype!r}: the port runs f32 only so far")
+                f"compute_dtype={dtype!r}: the port runs f32 only so far; bf16 is "
+                "ROADMAP.md, Queue 1 item 7")
         return cls(
             n_channels=n_channels,
             n_classes=n_classes,

@@ -10,14 +10,21 @@ path of ``wt_pse_tpu/ops/metrics.py``).
   distances both ways, as medpy aggregates it.
 
 These functions raise on an empty mask, as medpy does; the eval loop applies
-the reference's 100.0 sentinel for an empty prediction first. The JAX
-package's native C++ engine is not ported yet (``ROADMAP.md``).
+the reference's 100.0 sentinel for an empty prediction first.
+
+``backend`` picks the engine of the surface distances, as the JAX package
+dispatches (``wt_pse_tpu/ops/metrics.py:41-53``): ``'native'`` (the port's
+C++ operators, ``wt_pse_tpu_torch/native``, float32 distances), ``'scipy'``
+(the oracle below, float64), or ``'auto'``: native when it builds, else scipy
+(``native.scoring_backend``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.ndimage as ndi
+
+from wt_pse_tpu_torch import native
 
 
 def dice_binary(seg: np.ndarray, gt: np.ndarray) -> float:
@@ -34,9 +41,25 @@ def _surface(mask: np.ndarray, connectivity: int = 1) -> np.ndarray:
     return mask ^ eroded
 
 
-def surface_distances(a: np.ndarray, b: np.ndarray, connectivity: int = 1) -> np.ndarray:
+def surface_distances(a: np.ndarray, b: np.ndarray, connectivity: int = 1,
+                      backend: str = "auto") -> np.ndarray:
     """Distances from each surface voxel of ``a`` to the nearest surface voxel
-    of ``b`` (medpy ``__surface_distances``)."""
+    of ``b`` (medpy ``__surface_distances``), float64. The native engine
+    takes the connectivity-1 surfaces (medpy's default) only."""
+    if connectivity == 1 and native.scoring_backend(backend) == "native":
+        a = np.asarray(a, bool)
+        b = np.asarray(b, bool)
+        if not a.any():
+            raise ValueError("first mask is empty")
+        if not b.any():
+            raise ValueError("second mask is empty")
+        return native.surface_distances_native(a, b).astype(np.float64)
+    return surface_distances_scipy(a, b, connectivity)
+
+
+def surface_distances_scipy(a: np.ndarray, b: np.ndarray,
+                            connectivity: int = 1) -> np.ndarray:
+    """The scipy implementation, the oracle of the native one."""
     a = np.asarray(a, bool)
     b = np.asarray(b, bool)
     if not a.any():
@@ -49,24 +72,24 @@ def surface_distances(a: np.ndarray, b: np.ndarray, connectivity: int = 1) -> np
     return dt[sa]
 
 
-def asd(result: np.ndarray, reference: np.ndarray) -> float:
+def asd(result: np.ndarray, reference: np.ndarray, backend: str = "auto") -> float:
     """Average (one-directional) surface distance, medpy ``binary.asd``."""
-    return float(surface_distances(result, reference).mean())
+    return float(surface_distances(result, reference, backend=backend).mean())
 
 
-def assd(result: np.ndarray, reference: np.ndarray) -> float:
+def assd(result: np.ndarray, reference: np.ndarray, backend: str = "auto") -> float:
     """Average symmetric surface distance, medpy ``binary.assd``."""
-    d1 = surface_distances(result, reference)
-    d2 = surface_distances(reference, result)
+    d1 = surface_distances(result, reference, backend=backend)
+    d2 = surface_distances(reference, result, backend=backend)
     return float(np.concatenate([d1, d2]).mean())
 
 
-def hd95(result: np.ndarray, reference: np.ndarray) -> float:
+def hd95(result: np.ndarray, reference: np.ndarray, backend: str = "auto") -> float:
     """95th-percentile Hausdorff distance, medpy ``binary.hd95``: the
     percentile of the concatenated distance set, not the larger of the two
     one-way percentiles."""
-    d1 = surface_distances(result, reference)
-    d2 = surface_distances(reference, result)
+    d1 = surface_distances(result, reference, backend=backend)
+    d2 = surface_distances(reference, result, backend=backend)
     return float(np.percentile(np.hstack((d1, d2)), 95))
 
 

@@ -6,6 +6,11 @@ Connected components are 8-connected (skimage ``label``, as the reference's
 ``get_largest_fillhole`` uses); of equal largest areas the first label wins,
 as ``np.argmax`` picks it. Inputs are (C, H, W) host arrays: this runs on the
 host at eval time only.
+
+``backend`` picks the engine as the JAX package dispatches
+(``wt_pse_tpu/ops/postprocess.py:25-31``): ``'native'`` (the port's C++
+operators), ``'scipy'`` (the oracle), or ``'auto'`` (native when it builds);
+the two give the same mask bit for bit.
 """
 
 from __future__ import annotations
@@ -13,12 +18,21 @@ from __future__ import annotations
 import numpy as np
 import scipy.ndimage as ndi
 
+from wt_pse_tpu_torch import native
+
 _EIGHT = np.ones((3, 3), dtype=np.int8)
 
 
-def largest_component_fill_holes(binary: np.ndarray) -> np.ndarray:
+def largest_component_fill_holes(binary: np.ndarray, backend: str = "auto") -> np.ndarray:
     """Keep the largest 8-connected component, then fill holes
     (utils.py:267-276)."""
+    if native.scoring_backend(backend) == "native":
+        return native.largest_component_fill_holes_native(binary)
+    return largest_component_fill_holes_scipy(binary)
+
+
+def largest_component_fill_holes_scipy(binary: np.ndarray) -> np.ndarray:
+    """The scipy implementation, the oracle of the native one."""
     binary = np.asarray(binary)
     labeled, n = ndi.label(binary, structure=_EIGHT)
     if n > 0:
@@ -29,7 +43,7 @@ def largest_component_fill_holes(binary: np.ndarray) -> np.ndarray:
 
 
 def postprocess_logits(logits_chw: np.ndarray, threshold: float = 0.75,
-                       label: str | None = "OD") -> np.ndarray:
+                       label: str | None = "OD", backend: str = "auto") -> np.ndarray:
     """sigmoid -> > threshold -> per-channel LCC + fill (utils.py:298-329).
 
     ``logits_chw``: (C, H, W) float logits. With ``label`` set only channel 0
@@ -37,7 +51,7 @@ def postprocess_logits(logits_chw: np.ndarray, threshold: float = 0.75,
     """
     prob = 1.0 / (1.0 + np.exp(-np.asarray(logits_chw, np.float64)))
     out = (prob > threshold).astype(np.uint8)
-    out[0] = largest_component_fill_holes(out[0])
+    out[0] = largest_component_fill_holes(out[0], backend)
     if label is None:
-        out[1] = largest_component_fill_holes(out[1])
+        out[1] = largest_component_fill_holes(out[1], backend)
     return out

@@ -10,8 +10,11 @@ of ``wt_pse_tpu/train/eval.py``):
   an empty prediction scores HD = ASD = 100                  (Trainer.py:221-233)
 
 The predict runs on the card in chunks of ``batch_size`` images of one native
-resolution, with one device-to-host copy a chunk; the upsample and the scoring
-run on the host, as in the JAX package.
+resolution, with one device-to-host copy a chunk. The upsample runs on the
+host in f64 (``resize='host'``, the default, as in the JAX package) or on the
+card (``resize='device'``: the same half-pixel resize matrices applied in
+f32). The scoring runs on the host, on the native C++ operators or scipy
+(``native.scoring_backend``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from wt_pse_tpu_torch import native
 from wt_pse_tpu_torch.models.shape_prior import ShapeStudent
 from wt_pse_tpu_torch.models.wt_pse import WTPSE
 from wt_pse_tpu_torch.ops import metrics as M
@@ -91,9 +95,30 @@ def _resize_host(x: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
     return np.einsum("pw,ncow->ncop", mw, y).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_matrix_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_linear_resize_matrix_np(in_size, out_size)).to(device)
+
+
+def resize_device(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NCHW logits where they lie, as two f32 products
+    with the host upsample's half-pixel resize matrices. ``F.interpolate``
+    (like the JAX package's device ``_resize_logits``) weighs the same taps
+    from f32 coordinates and lands 2e-5 of the range away at 256 -> 640
+    (``tests/test_torch_eval.py``), so it is not used."""
+    h, w = x.shape[-2:]
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return x
+    mh = _resize_matrix_on(h, oh, x.device)
+    mw = _resize_matrix_on(w, ow, x.device)
+    return torch.matmul(torch.matmul(mh, x), mw.T)
+
+
 def evaluate_domain(predict_fn, images_u8, od_masks: list[np.ndarray],
                     oc_masks: list[np.ndarray], label: str | None = "OD",
-                    batch_size: int = 8, timings: dict | None = None) -> dict[str, float]:
+                    batch_size: int = 8, timings: dict | None = None,
+                    resize: str = "host", backend: str = "auto") -> dict[str, float]:
     """Evaluate one test domain.
 
     Args:
@@ -103,12 +128,20 @@ def evaluate_domain(predict_fn, images_u8, od_masks: list[np.ndarray],
       od_masks / oc_masks: per-image native-resolution binary masks.
       label: the validation objective ('OD' / 'OC' / None), Trainer.py:269-274.
       timings: if given, the seconds spent in the predict (to the end of its
-        device-to-host copy), the host upsample and the host scoring are
-        added under ``predict``, ``upsample`` and ``score``.
+        device-to-host copy), the upsample and the host scoring are added
+        under ``predict``, ``upsample`` and ``score``. With
+        ``resize='device'`` the upsample on the card is inside ``predict``
+        and ``upsample`` stays 0.
+      resize: 'host' (f64 on the host) or 'device' (:func:`resize_device`).
+      backend: the scoring engine, 'auto', 'native' or 'scipy'
+        (``native.scoring_backend``).
 
     Returns the means of cup_dice, disc_dice, cup_hd, disc_hd, cup_asd,
     disc_asd, and ``objective`` keyed by ``label``.
     """
+    if resize not in ("host", "device"):
+        raise ValueError(f"resize must be 'host' or 'device', got {resize!r}")
+    backend = native.scoring_backend(backend)
     n = len(images_u8)
     images = torch.as_tensor(images_u8)
     sums = defaultdict(float)
@@ -124,15 +157,18 @@ def evaluate_domain(predict_fn, images_u8, od_masks: list[np.ndarray],
             sel = torch.as_tensor(chunk, device=images.device)
             img = images[sel].permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
             out_od, out_oc = predict_fn(img)
+            if resize == "device":
+                out_od = resize_device(out_od, native_hw)
+                out_oc = resize_device(out_oc, native_hw)
             logits = torch.stack([out_od, out_oc]).cpu().numpy()
             t1 = time.perf_counter()
-            od_native = _resize_host(logits[0], native_hw)
+            od_native = _resize_host(logits[0], native_hw)  # no-op after the device
             oc_native = _resize_host(logits[1], native_hw)
             t2 = time.perf_counter()
             for j, i in enumerate(chunk):
                 res = _score_one(od_native[j], oc_native[j],
                                  np.asarray(od_masks[i]).squeeze(),
-                                 np.asarray(oc_masks[i]).squeeze(), label)
+                                 np.asarray(oc_masks[i]).squeeze(), label, backend)
                 for k, v in res.items():
                     sums[k] += v
             spent["predict"] += t1 - t0
@@ -158,7 +194,8 @@ def objective_from_means(out: dict, label: str | None) -> float:
 
 
 def _score_one(od_logits: np.ndarray, oc_logits: np.ndarray, od_gt: np.ndarray,
-               oc_gt: np.ndarray, label: str | None) -> dict[str, float]:
+               oc_gt: np.ndarray, label: str | None,
+               backend: str = "auto") -> dict[str, float]:
     """Score one image from (C, H, W) logits.
 
     ``label`` set: C == 1 and channel 0 carries the stage's class.
@@ -166,18 +203,18 @@ def _score_one(od_logits: np.ndarray, oc_logits: np.ndarray, od_gt: np.ndarray,
     reference's channel order [cup, disc]; Dice reads disc from the OD model's
     channel 1 and cup from the OC model's channel 0, while HD/ASD compare
     channel 0 of each model against the cup GT (Trainer.py:221-239, the
-    reference's own channel choice)."""
+    reference's own channel choice). ``backend`` is the scoring engine."""
     if label is None:
-        pred_od = postprocess_logits(od_logits, label=None)
-        pred_oc = postprocess_logits(oc_logits, label=None)
+        pred_od = postprocess_logits(od_logits, label=None, backend=backend)
+        pred_oc = postprocess_logits(oc_logits, label=None, backend=backend)
         gt2 = np.stack([oc_gt, od_gt])
         _, disc_dice = M.dice_coeff_2label(pred_od, gt2, None)
         cup_dice, _ = M.dice_coeff_2label(pred_oc, gt2, None)
         pred_od, od_gt = pred_od[0], gt2[0]
         pred_oc, oc_gt = pred_oc[0], gt2[0]
     else:
-        pred_od = postprocess_logits(od_logits, label=label)[0]
-        pred_oc = postprocess_logits(oc_logits, label=label)[0]
+        pred_od = postprocess_logits(od_logits, label=label, backend=backend)[0]
+        pred_oc = postprocess_logits(oc_logits, label=label, backend=backend)[0]
         _, disc_dice = M.dice_coeff_2label(pred_od[None], od_gt[None], label)
         cup_dice, _ = M.dice_coeff_2label(pred_oc[None], oc_gt[None], label)
 
@@ -197,13 +234,13 @@ def _score_one(od_logits: np.ndarray, oc_logits: np.ndarray, od_gt: np.ndarray,
         cup_hd = cup_asd = 100.0
     else:
         require_nonempty_gt("OC", oc_gt)
-        cup_hd = M.hd95(as_bool(pred_oc), as_bool(oc_gt))
-        cup_asd = M.asd(as_bool(pred_oc), as_bool(oc_gt))
+        cup_hd = M.hd95(as_bool(pred_oc), as_bool(oc_gt), backend)
+        cup_asd = M.asd(as_bool(pred_oc), as_bool(oc_gt), backend)
     if pred_od.sum() < 1e-4:
         disc_hd = disc_asd = 100.0
     else:
         require_nonempty_gt("OD", od_gt)
-        disc_hd = M.hd95(as_bool(pred_od), as_bool(od_gt))
-        disc_asd = M.asd(as_bool(pred_od), as_bool(od_gt))
+        disc_hd = M.hd95(as_bool(pred_od), as_bool(od_gt), backend)
+        disc_asd = M.asd(as_bool(pred_od), as_bool(od_gt), backend)
     return {"cup_dice": cup_dice, "disc_dice": disc_dice, "cup_hd": cup_hd,
             "disc_hd": disc_hd, "cup_asd": cup_asd, "disc_asd": disc_asd}

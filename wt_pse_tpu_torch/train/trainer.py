@@ -10,7 +10,15 @@
 - Validation every ``interval_validate`` epochs once ``epoch > 2``
   (Trainer.py:1048): the two-stage predict on the device, the upsample to the
   native label resolution, post-processing and metrics on the host
-  (``train/eval.py``).
+  (``train/eval.py``, native C++ or scipy scoring), or with
+  ``fast_validation`` all of it on the device at network resolution
+  (``train/eval_device.py``).
+- ``train_visualization``: after step ``g`` with ``g % train_viz_interval ==
+  0``, sample 0 of the batch that step trained on goes through the two-stage
+  forward in eval mode (:func:`viz_forward`) and ``train/image``,
+  ``train/shape_cup``, ``train/target_cup`` and ``train/pre_cup`` are logged
+  (Trainer.py:927-951). It draws nothing from the run's generator, so a run
+  with and without it trains alike.
 - Best-model selection by ``label`` (OD -> disc Dice, OC -> cup Dice),
   ``checkpoint_{epoch+1}.pth.tar``, ``best.json`` and ``score.txt`` on a new
   best; returns ``[best_cup_dice, best_cup_hd, best_cup_asd, best_disc_dice,
@@ -23,8 +31,8 @@ epoch)``, so a run resumed at an epoch draws what the uninterrupted run drew
 (the JAX trainer's ``fold_in(run_key, step)`` property).
 
 Options whose slices are not ported raise ``NotImplementedError``
-(``ROADMAP.md``, Queue 1): data parallelism, the joint algorithm, fast
-validation and the train-image montage.
+(``ROADMAP.md``, Queue 1): data parallelism and the joint algorithm (bf16
+raises in ``ModelConfig``).
 """
 
 from __future__ import annotations
@@ -38,12 +46,14 @@ import time
 import numpy as np
 import torch
 
+from wt_pse_tpu_torch import native
 from wt_pse_tpu_torch.data.augment import make_device_batch_fn
 from wt_pse_tpu_torch.data.fundus import FundusDomain, encode_masks
 from wt_pse_tpu_torch.io.checkpoint import restore_ensemble, save_ensemble
 from wt_pse_tpu_torch.models.common import ModelConfig
 from wt_pse_tpu_torch.runtime import resolve_device
 from wt_pse_tpu_torch.train.eval import evaluate_domain, make_predict_fn
+from wt_pse_tpu_torch.train.eval_device import evaluate_domain_device
 from wt_pse_tpu_torch.train.lr import epoch_lrs, reference_lr_kwargs, reference_lr_value
 from wt_pse_tpu_torch.train.state import WTPSETrainState, init_ensemble
 from wt_pse_tpu_torch.train.step import StepConfig, make_train_step
@@ -76,6 +86,29 @@ def _draw_seed(seed: int, epoch: int, salt: int = 0) -> int:
     """A 63-bit generator seed from (seed, epoch, salt)."""
     digest = hashlib.sha256(f"{seed}:{epoch}:{salt}".encode()).digest()
     return int.from_bytes(digest[:8], "little") >> 1
+
+
+@torch.no_grad()
+def viz_forward(main_od: torch.nn.Module, main_oc: torch.nn.Module, batch: dict):
+    """The train-image forward (the JAX Trainer's ``viz_forward``,
+    trainer.py:319-356): the two-stage forward of the training nets in eval
+    mode with zero shape noise; the OC logits are masked by the OD prediction
+    before any threshold (Trainer.py:873,944). Returns sample 0's ROI image,
+    OC attention mask (zeros without one), OC target and OC logits, each
+    (C, H, W). The nets are left in eval mode; the step puts them back in
+    train mode."""
+    image, t_od, t_oc = batch["image"], batch["target_od"], batch["target_oc"]
+    main_od.eval()
+    main_oc.eval()
+    eps = torch.zeros_like(t_od)
+    out_od, _, _ = main_od(image, t_od, image, eps=eps)
+    od_pred = (torch.sigmoid(out_od) > 0.75).to(image.dtype)
+    roi = (image + 1.0) * od_pred - 1.0
+    out_oc, att_oc, _ = main_oc(roi, t_oc, roi, eps=eps)
+    out_oc = out_oc * od_pred
+    if att_oc is None:
+        att_oc = torch.zeros_like(out_oc)
+    return roi[0], att_oc[0], t_oc[0], out_oc[0]
 
 
 def _not_ported(what: str):
@@ -113,6 +146,7 @@ class Trainer:
         val_visualization: bool = True,
         per_step_logging: bool = False,
         train_visualization: bool = False,
+        train_viz_interval: int = 30,
         lr_schedule: dict | None = None,
         dp: bool | None = None,
         dp_devices: int | None = None,
@@ -125,10 +159,8 @@ class Trainer:
             raise _not_ported("data parallelism (dp / dp_devices)")
         if algorithm != "WT_PSE":
             raise _not_ported(f"algorithm {algorithm!r}")
-        if fast_validation:
-            raise _not_ported("fast_validation (on-device metrics)")
-        if train_visualization:
-            raise _not_ported("the train-image montage (train_visualization)")
+        if train_viz_interval <= 0:  # "off" is train_visualization=False
+            raise ValueError(f"train_viz_interval must be >= 1, got {train_viz_interval}")
         self.domain_num = len(train_domains)
         self.per_domain_batch = batch_size // self.domain_num
         if self.per_domain_batch < 1:
@@ -189,7 +221,10 @@ class Trainer:
             self.val_od.append(od)
             self.val_oc.append(oc)
         self.val_visualization = val_visualization
-        if val_visualization:  # the montage shows the masks at network resolution
+        self.fast_validation = fast_validation
+        self.train_visualization = train_visualization
+        self.train_viz_interval = train_viz_interval
+        if fast_validation or val_visualization:  # the masks at network resolution
             from PIL import Image
 
             masks = [encode_masks(np.asarray(
@@ -203,6 +238,9 @@ class Trainer:
         self.epoch_seconds: list[float] = []
         self.enqueue_seconds: list[float] = []
         self.validation_seconds: list[dict[str, float]] = []
+        # what scored the last validation: 'native' or 'scipy' on the host, or
+        # 'device' (fast_validation)
+        self.scoring_backend: str | None = None
 
         self.per_step_logging = per_step_logging
         self.best = {"objective": 0.0, "epoch": -1}
@@ -270,17 +308,48 @@ class Trainer:
         path = save_val_img(self.out, self.epoch, montages)
         self.logger.image("val/montage", np.asarray(Image.open(path)), self.epoch)
 
+    def _save_train_montage(self, batch: dict, iteration: int):
+        """Log sample 0 of ``batch`` through :func:`viz_forward`
+        (Trainer.py:927-951): the OC-stage ROI image, the attention mask
+        (whitening runs), the OC target and the thresholded OC prediction."""
+        from wt_pse_tpu_torch.utils.visualization import untransform
+
+        roi, att, t_oc, out_oc = (t.permute(1, 2, 0).cpu().numpy() for t in
+                                  viz_forward(self.state.od.net, self.state.oc.net, batch))
+
+        def gray_u8(a):
+            a = np.clip(np.asarray(a, np.float32), 0.0, 1.0)
+            return np.repeat((a * 255).astype(np.uint8), 3, axis=-1)
+
+        self.logger.image("train/image", untransform(roi), iteration)
+        if self.cfg.whitening:
+            self.logger.image("train/shape_cup", gray_u8(att), iteration)
+        self.logger.image("train/target_cup", gray_u8(t_oc), iteration)
+        pred = (1.0 / (1.0 + np.exp(-out_oc)) > 0.75).astype(np.float32)
+        self.logger.image("train/pre_cup", gray_u8(pred), iteration)
+
     def validate(self) -> dict:
-        """Score the current nets on the validation domain. The seconds spent
-        in the predict, the host upsample and the host scoring are appended to
-        ``validation_seconds``."""
+        """Score the current nets on the validation domain, at native
+        resolution on the host or, with ``fast_validation``, on the device.
+        The seconds spent (``predict`` / ``upsample`` / ``score`` on the host
+        path, ``device`` on the fast one) are appended to
+        ``validation_seconds``; the engine that scored is
+        ``scoring_backend``."""
         predict = make_predict_fn(*(ns.net for ns in self.state.net_states()),
                                   device=self.device)
         if self.val_visualization:
             self._save_val_montage(predict)
         timings: dict[str, float] = {}
-        out = evaluate_domain(predict, self.val_images, self.val_od, self.val_oc,
-                              self.label, self.eval_batch_size, timings=timings)
+        if self.fast_validation:
+            self.scoring_backend = "device"
+            out = evaluate_domain_device(predict, self.val_images, self._val_od_256,
+                                         self._val_oc_256, self.label,
+                                         self.eval_batch_size, timings=timings)
+        else:
+            self.scoring_backend = native.scoring_backend("auto")
+            out = evaluate_domain(predict, self.val_images, self.val_od, self.val_oc,
+                                  self.label, self.eval_batch_size, timings=timings,
+                                  backend=self.scoring_backend)
         self.validation_seconds.append(timings)
         return out
 
@@ -316,9 +385,12 @@ class Trainer:
         self._gen.manual_seed(_draw_seed(self.seed, epoch, self._rollbacks))
         step_ms = []
         t0 = time.perf_counter()
-        for _ in range(self.iter_per_epoch):
+        for it in range(self.iter_per_epoch):
             batch = self._batch_fn(self.data, self._gen)
             step_ms.append(self._train_step(self.state, batch, generator=self._gen))
+            g = epoch * self.iter_per_epoch + it
+            if self.train_visualization and g % self.train_viz_interval == 0:
+                self._save_train_montage(batch, g)
         self.enqueue_seconds.append(time.perf_counter() - t0)
         names = sorted(step_ms[0])
         # the one device-to-host copy of the epoch
@@ -382,6 +454,7 @@ class Trainer:
             if (epoch + 1) % self.interval_validate == 0 and epoch > 2:
                 print("-" * 10, "start to validate", "-" * 10)
                 val = self.validate()
+                print(f"validation scored on: {self.scoring_backend}")
                 _csv(val)
                 self.logger.scalars(epoch, {f"val/{k}": v for k, v in val.items()})
                 if val["objective"] > self.best["objective"]:

@@ -1,8 +1,8 @@
 """The validation montage (the port's own copy of
 ``wt_pse_tpu/utils/visualization.py:19-164``): contour overlays and the
-4-panel image grid of ``utils.py:330-363`` in the reference. PIL is imported
-only where a PNG is written. ``save_per_img`` belongs to the evaluation CLI,
-which is not ported yet (``ROADMAP.md``).
+4-panel image grid of ``utils.py:330-363`` in the reference, and the
+evaluation CLI's per-image pair (``save_per_img``, ``utils.py:371-454``). PIL
+is imported only where an image is written.
 """
 
 from __future__ import annotations
@@ -132,3 +132,18 @@ def save_val_img(path: str, epoch: int, imgs: list[np.ndarray]) -> str:
     file = os.path.join(out, f"epoch_{epoch}.png")
     Image.fromarray(u8).save(file)
     return file
+
+
+def save_per_img(image_u8: np.ndarray, out_dir: str, name: str,
+                 pred_2ch: np.ndarray, gt_2ch: np.ndarray, ext: str = "bmp") -> None:
+    """Write ``<out_dir>/original_image/<name>.<ext>`` and
+    ``<out_dir>/overlay/<name>.<ext>`` (the reference's layout,
+    utils.py:371-454): the image, and the image with the contours of
+    :func:`overlay_contours`."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(out_dir, "original_image"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "overlay"), exist_ok=True)
+    Image.fromarray(image_u8).save(os.path.join(out_dir, "original_image", f"{name}.{ext}"))
+    Image.fromarray(overlay_contours(image_u8, pred_2ch, gt_2ch)).save(
+        os.path.join(out_dir, "overlay", f"{name}.{ext}"))
