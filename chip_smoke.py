@@ -9,9 +9,13 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    and, at the same time, the native eval operators (``csrc/evalops.cpp``,
    g++), and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, forward and
-   backward, at shapes that reach every variant: the main-path shape
-   (9, 16, 256, 256), ragged HW, other C, and a z whose storage starts 4 bytes
-   past a 16-byte boundary; and check that two calls are bitwise equal;
+   backward, for an f32 and a bf16 z, at shapes that reach every variant: the
+   main-path shape (9, 16, 256, 256), ragged HW (HW % 8 == 4 for bf16), other
+   C, and a z whose storage starts 4 (f32) or 2 and 8 (bf16) bytes past a
+   16-byte boundary; and check that two calls are bitwise equal. The Gram is
+   held at ``f32_reduce`` for either type, a bf16 dz within 1 bf16 ulp of its
+   plain version (plus the f32 kernel's ``f32_reduce`` allowance for the
+   summation order, which decides only where a value's products cancel);
 3. hold one small step and a predict on the card against the same on the CPU
    (the port's plain path, which the CPU tests hold against the JAX package);
 4. the main path: full-width training steps (256x256, batch 9 = 3 domains x 3,
@@ -22,12 +26,14 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    device time a call); both kernels held against their plain versions on the
    main path's own DeepWT maps (the OD net's, since the OC ROI is empty at
    initialisation); then the two-stage predict;
-5. time each kernel beside its bound, its plain version and one PyTorch call
-   that computes the same function (a yardstick the port never calls), in
-   turns in one loop, so that all three are timed on one card at one time:
-   after a write that fills the L2 with dirty lines (the record), then after a
-   read (a second reading); and the host time of a wrapper call;
-6. the trainer, the slice's main path: ``Trainer`` at full width (256x256,
+5. time each kernel, for an f32 and a bf16 z, beside its bound, its plain
+   version and one PyTorch call that computes the same function (a yardstick
+   the port never calls: ``torch.bmm``, for bf16 with an f32 result where this
+   torch takes ``out_dtype``), in turns in one loop, so that all three are
+   timed on one card at one time: after a write that fills the L2 with dirty
+   lines (the record), then after a read (a second reading); and the host
+   time of a wrapper call;
+6. the f32 trainer: ``Trainer`` at full width (256x256,
    batch 9 = 3 domains x 3 of 12 images each, f32) on numpy-made pools (no
    PIL, no YAML, no file read) trains 5 epochs of 4 steps, with the launch
    counts set to 0 just before and read just after (8 of each kernel a step),
@@ -62,12 +68,30 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    ``evaluate_domain`` on the reloaded nets, ``resize='device'`` is within
    ``f32_reduce`` of the f64 host upsample, 8 overlays and 8 originals; (e)
    ``load_predictor`` on 8 uint8 images at 412x412: masks (8, 412, 412),
-   finite logits, a steady call timed.
+   finite logits, a steady call timed;
+8. the bf16 main path (``compute_dtype='bfloat16'``): 8 full-width bf16
+   steps from seeded weights on one fixed batch, with the launch counts set
+   to 0 just before and read just after (8 of each bf16 kernel a step, no f32
+   launch), finite losses and a loss that falls over the 8 steps, f32
+   parameters and BatchNorm statistics after them, the steady bf16 step time
+   beside phase 4's f32 step of the same call, a ``torch.profiler`` breakdown
+   of two more steps by layer (convolutions, BatchNorm, casts, the card's busy
+   share); a ``Trainer`` in bf16 for 3 epochs and one validation (finite
+   metrics, ``run_meta.json`` records the dtype); a small bf16 step and predict
+   on the card against the CPU at class bf16; the peak device memory;
+9. the joint variant (``Unet_nips2023_joint_shape_regularization``): a
+   full-width ``Trainer`` at its default hparams (whitening off) for 3 epochs
+   and one validation, with no covariance launch; one epoch with
+   ``whitening=True`` (4 launches of each kernel a step); a small joint step
+   and predict (whitening on, bf16) against the CPU; the eval CLI on the
+   joint checkpoint (its metrics equal ``evaluate_domain`` on the reloaded
+   nets) and ``load_predictor``; epoch, validation and CLI times.
 
 The card's name and power limit follow the build line. The line before the
-last is a JSON ``kernels`` record (``launches`` counted in phase 6); the last
-is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or the JAX
-package.
+last is a JSON ``kernels`` record of four rows, the f32 and the bf16 variant
+of each kernel (``launches`` counted in the trainer runs of phases 6 and 8);
+the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or the
+JAX package.
 """
 
 from __future__ import annotations
@@ -100,6 +124,15 @@ MAIN_SHAPE = (9, 16, 256, 256)
 CHECK_CASES = ((MAIN_SHAPE, 0), ((9, 16, 64, 64), 0), ((2, 32, 16, 16), 0),
                ((9, 16, 250, 250), 0), ((3, 16, 47, 47), 0), ((2, 32, 33, 31), 0),
                ((1, 5, 1, 3), 0), (MAIN_SHAPE, 1))
+# bf16 (offset in bf16 values): HW % 8 == 0 with an aligned base (the 16-byte
+# variants, at C = 16 and at another C, and a base 16 bytes in); HW % 8 == 4,
+# an odd HW, and bases 2 and 8 bytes past a 16-byte boundary (the narrow ones)
+BF16_CHECK_CASES = ((MAIN_SHAPE, 0), ((9, 16, 64, 64), 0), ((2, 32, 16, 16), 0),
+                    ((9, 16, 250, 250), 0), ((3, 16, 47, 47), 0), ((2, 32, 33, 31), 0),
+                    ((1, 5, 1, 3), 0), (MAIN_SHAPE, 1), (MAIN_SHAPE, 4), (MAIN_SHAPE, 8))
+BF16_TOL = (2e-2, 1e-3)    # tolerance class bf16 (card against CPU, both in bf16)
+STEPS_BF16 = 8             # phase 8: full-width bf16 steps on one fixed batch
+JOINT = "Unet_nips2023_joint_shape_regularization"
 
 
 def log(msg: str) -> None:
@@ -114,21 +147,44 @@ def cov_error(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return float(err.max()), float((err / scale).max())
 
 
+def bf16_ulp_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want| / (ulp + a)``: one bf16 ulp of the larger
+    magnitude plus ``a = f32_reduce * max|want|``, the f32 dz kernel's
+    allowance for its summation order. Both sides round an f32 sum once; the
+    allowance decides only where a value's 16 products cancel to the f32
+    noise floor, where another order rounds the small result otherwise."""
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return float(((got - want).abs() / (ulp + F32_REDUCE_RTOL * want.abs().max())).max())
+
+
 def check_pair(cc, z: torch.Tensor, g: torch.Tensor, what: str) -> dict:
     """Both kernels against their plain versions on (z, g), and a second call of
-    each bitwise equal to the first. Returns the max abs errors."""
+    each bitwise equal to the first. The Gram is held at f32_reduce; dz at
+    f32_reduce for an f32 z, within 1 bf16 ulp (``bf16_ulp_error``) for a bf16
+    one. Returns the max abs errors."""
     got_f, want_f = cc.covariance_forward(z), cc.covariance_forward_plain(z)
     got_b, want_b = cc.covariance_backward(z, g), cc.covariance_backward_plain(z, g)
     again_f, again_b = cc.covariance_forward(z), cc.covariance_backward(z, g)
     torch.cuda.synchronize()
     f_abs, f_rel = cov_error(got_f, want_f)
-    b_abs = float((got_b - want_b).abs().max())
-    b_rel = b_abs / float(want_b.abs().max())
+    b_abs = float((got_b.float() - want_b.float()).abs().max())
     repeat = torch.equal(got_f, again_f) and torch.equal(got_b, again_b)
-    log(f"kernel check {what}: gram max_abs {f_abs:.3e} scaled {f_rel:.3e}; "
-        f"dz max_abs {b_abs:.3e} rel-to-max {b_rel:.3e}; tolerance {F32_REDUCE_RTOL} "
-        f"(f32_reduce); second call bitwise equal: {repeat}")
-    if not (f_rel <= F32_REDUCE_RTOL and b_rel <= F32_REDUCE_RTOL):
+    if z.dtype == torch.bfloat16:
+        b_err = bf16_ulp_error(got_b, want_b)
+        exact = float((got_b == want_b).float().mean())
+        dz_ok = b_err <= 1.0 and got_b.dtype == torch.bfloat16
+        dz_msg = (f"dz max_abs {b_abs:.3e}, {b_err:.3f} of (1 bf16 ulp + f32_reduce), "
+                  f"{exact:.4%} bitwise equal")
+    else:
+        b_err = b_abs / float(want_b.abs().max())
+        dz_ok = b_err <= F32_REDUCE_RTOL
+        dz_msg = f"dz max_abs {b_abs:.3e} rel-to-max {b_err:.3e}"
+    log(f"kernel check {str(z.dtype)[6:]} {what}: gram max_abs {f_abs:.3e} scaled "
+        f"{f_rel:.3e} (f32_reduce {F32_REDUCE_RTOL}); {dz_msg}; second call bitwise "
+        f"equal: {repeat}")
+    if not (f_rel <= F32_REDUCE_RTOL and dz_ok and got_f.dtype == torch.float32):
         raise SystemExit(f"kernel disagrees with its plain version at {what}")
     if not repeat:
         raise SystemExit(f"a second kernel call differs from the first at {what}")
@@ -136,17 +192,41 @@ def check_pair(cc, z: torch.Tensor, g: torch.Tensor, what: str) -> dict:
 
 
 def check_kernels(cc, dev) -> dict:
-    """Phase 2. Returns the max abs errors at the main-path shape."""
+    """Phase 2. Returns the max abs errors at the main-path shape, by kernel
+    row name."""
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {}
-    for shape, offset in CHECK_CASES:
-        n = math.prod(shape)
-        z = torch.randn(n + offset, device=dev, generator=gen)[offset:].view(shape)
-        g = torch.randn(shape[0], shape[1], shape[1], device=dev, generator=gen)
-        got = check_pair(cc, z, g, f"{shape} storage offset {offset}")
-        if (shape, offset) == (MAIN_SHAPE, 0):
-            errs = got
+    for dtype, cases, suffix in ((torch.float32, CHECK_CASES, ""),
+                                 (torch.bfloat16, BF16_CHECK_CASES, "_bf16")):
+        for shape, offset in cases:
+            n = math.prod(shape)
+            z = torch.randn(n + offset, device=dev, generator=gen).to(dtype)[offset:].view(shape)
+            g = torch.randn(shape[0], shape[1], shape[1], device=dev, generator=gen)
+            got = check_pair(cc, z, g, f"{shape} storage offset {offset}")
+            if (shape, offset) == (MAIN_SHAPE, 0):
+                errs.update({f"covariance_{k}{suffix}": v for k, v in got.items()})
     return errs
+
+
+def zero_counts(cc) -> None:
+    """Sets every kernel's launch count to 0."""
+    for fn in (cc.covariance_forward, cc.covariance_backward):
+        fn.launches = fn.launches_bf16 = 0
+
+
+def read_counts(cc) -> dict:
+    """The launch counts by kernel row name."""
+    return {"covariance_gram": cc.covariance_forward.launches,
+            "covariance_dz": cc.covariance_backward.launches,
+            "covariance_gram_bf16": cc.covariance_forward.launches_bf16,
+            "covariance_dz_bf16": cc.covariance_backward.launches_bf16}
+
+
+def expect_counts(got: dict, f32: int, bf16: int, what: str) -> None:
+    want = {"covariance_gram": f32, "covariance_dz": f32,
+            "covariance_gram_bf16": bf16, "covariance_dz_bf16": bf16}
+    if got != want:
+        raise SystemExit(f"{what}: expected launches {want}, got {got}")
 
 
 def synthetic_batch(n_dom: int, per_dom: int, hw: int, seed: int) -> dict:
@@ -233,9 +313,27 @@ def device_time(prof):
     return busy, window, by_name, calls
 
 
+# device kernels by the layer they belong to, for the step's breakdown
+# (first match wins: cuDNN's BatchNorm kernels also carry "cudnn")
+KERNEL_GROUPS = (("covariance", r"gram_\w+_kernel|dz_kernel"),
+                 ("batchnorm", r"batch_norm|bn_fw|bn_bw|welford"),
+                 ("convolution", r"conv|cudnn|fft|implicit|xmma|wgrad|dgrad|winograd|"
+                                 r"nchwToNhwc|nhwcToNchw|sm90_|sm80_"),
+                 ("cast", r"direct_copy|copy_kernel"),
+                 ("upsample", r"upsample"))
+
+
+def kernel_group(name: str) -> str:
+    for group, pattern in KERNEL_GROUPS:
+        if re.search(pattern, name, re.I):
+            return group
+    return "other"
+
+
 def profile_steps(step, state, batch, gen, step_ms: float, n: int = 2) -> None:
-    """Device time by kernel over ``n`` steady traced steps, and the device's
-    busy share of ``step_ms``, the untraced steady step time."""
+    """Device time by kernel over ``n`` steady traced steps, by layer
+    (``KERNEL_GROUPS``), and the device's busy share of ``step_ms``, the
+    untraced steady step time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -254,6 +352,12 @@ def profile_steps(step, state, batch, gen, step_ms: float, n: int = 2) -> None:
         f"first-to-last-kernel window; {n_events // n} device events/step")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         log(f"  {us / n / 1e3:8.3f} ms/step {us / total:6.1%}  {name[:110]}")
+    groups: dict[str, float] = {}
+    for name, us in by_name.items():
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + us
+    log("device time by layer: " + ", ".join(
+        f"{g} {us / n / 1e3:.2f} ms/step ({us / total:.1%})"
+        for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
     # the hand-written kernels as the step calls them, the L2 left as the
     # step's other kernels leave it
     own = {re.sub(r"^void |\(anonymous namespace\)::|[(<].*$", "", k): (v, calls[k])
@@ -265,8 +369,9 @@ def profile_steps(step, state, batch, gen, step_ms: float, n: int = 2) -> None:
                   for k, (v, k_n) in sorted(own.items())))
 
 
-def main_path(cc, dev) -> None:
-    """Phase 4: full-width steps and the two-stage predict."""
+def main_path(cc, dev) -> float:
+    """Phase 4: full-width steps and the two-stage predict. Returns the
+    steady step time in ms."""
     from wt_pse_tpu_torch.config import default_hparams
     from wt_pse_tpu_torch.models.common import ModelConfig
     from wt_pse_tpu_torch.train.eval import make_predict_fn
@@ -283,8 +388,7 @@ def main_path(cc, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
 
-    cc.covariance_forward.launches = 0
-    cc.covariance_backward.launches = 0
+    zero_counts(cc)
     times = []
     for _ in range(STEPS):
         t0 = time.perf_counter()
@@ -294,16 +398,16 @@ def main_path(cc, dev) -> None:
         bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
         if bad:
             raise SystemExit(f"non-finite metrics at step {state.step}: {bad}")
-    launches = {"gram": cc.covariance_forward.launches, "dz": cc.covariance_backward.launches}
+    launches = read_counts(cc)
+    steady_ms = statistics.median(times[1:]) * 1e3
     log(f"train steps ({STEPS}, 256x256, batch 9 = 3x3, f32): " +
         ", ".join(f"{t * 1e3:.2f} ms" for t in times) +
-        f"; steady median {statistics.median(times[1:]) * 1e3:.2f} ms/step")
+        f"; steady median {steady_ms:.2f} ms/step")
     log("last step metrics: " + json.dumps({k: float(v) for k, v in sorted(metrics.items())}))
     log(f"covariance launches over the {STEPS} steps: {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
-    if launches != {"gram": 8 * STEPS, "dz": 8 * STEPS}:
-        raise SystemExit(f"expected 8 gram and 8 dz launches a step, got {launches}")
-    profile_steps(step, state, batch, gen, statistics.median(times[1:]) * 1e3)
+    expect_counts(launches, 8 * STEPS, 0, "phase 4")
+    profile_steps(step, state, batch, gen, steady_ms)
 
     # the maps in train mode, as the step makes them; the BatchNorm running
     # statistics that this forward updates are put back before the predict
@@ -334,6 +438,7 @@ def main_path(cc, dev) -> None:
     log("two-stage predict (batch 9, 256x256): " +
         ", ".join(f"{t * 1e3:.2f} ms" for t in ptimes) +
         f"; od>0.75 share {float((torch.sigmoid(od) > 0.75).float().mean()):.4f}")
+    return steady_ms
 
 
 def synthetic_pools(seed: int = 11):
@@ -398,13 +503,11 @@ def trainer_path(cc, dev, tmp: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     trainer = Trainer(hp, train, val, run, max_epoch=EPOCHS, **kw)
     torch.cuda.synchronize()
-    cc.covariance_forward.launches = 0
-    cc.covariance_backward.launches = 0
+    zero_counts(cc)
     t0 = time.perf_counter()
     trainer.train()
     wall = time.perf_counter() - t0
-    launches = {"gram": cc.covariance_forward.launches,
-                "dz": cc.covariance_backward.launches}
+    launches = read_counts(cc)
     steps = EPOCHS * trainer.iter_per_epoch
     et = trainer.epoch_seconds
     steady = statistics.median(et[1:])
@@ -416,8 +519,7 @@ def trainer_path(cc, dev, tmp: str) -> dict:
         f" s of them; covariance "
         f"launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
-    if launches != {"gram": 8 * steps, "dz": 8 * steps}:
-        raise SystemExit(f"expected {8 * steps} gram and dz launches, got {launches}")
+    expect_counts(launches, 8 * steps, 0, "phase 6")
     for i, v in enumerate(trainer.validation_seconds):
         log(f"validation {i} (8 images, native 512x512 x5 and 640x640 x3): "
             f"{sum(v.values()):.3f} s = predict on the card {v['predict']:.3f} s + "
@@ -506,7 +608,7 @@ def trainer_path(cc, dev, tmp: str) -> dict:
     log("host time of the traced epoch by op (self, top 12): " + "; ".join(
         f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}" for e in host[:12]))
     return {"launches": launches, "trainer": trainer, "checkpoint": ckpts[-1],
-            "train": train, "val": val}
+            "train": train, "val": val, "epoch_loss_seg": [r["loss_seg"] for r in epochs]}
 
 
 def blob_masks(b: int = 8, hw: int = 256, seed: int = 13) -> np.ndarray:
@@ -570,13 +672,12 @@ def eval_path(cc, dev, tmp: str, p6: dict) -> None:
     from wt_pse_tpu_torch.train.trainer import Trainer
 
     def counted(what, fn, expect=0):
-        cc.covariance_forward.launches = cc.covariance_backward.launches = 0
+        zero_counts(cc)
         out = fn()
         torch.cuda.synchronize()
-        got = (cc.covariance_forward.launches, cc.covariance_backward.launches)
-        log(f"phase 7 {what}: covariance launches (gram, dz) {got}")
-        if got != (expect, expect):
-            raise SystemExit(f"phase 7 {what}: expected {expect} launches of each kernel, got {got}")
+        got = read_counts(cc)
+        log(f"phase 7 {what}: covariance launches {got}")
+        expect_counts(got, expect, 0, f"phase 7 {what}")
         return out
 
     hp = default_hparams("WT_PSE")
@@ -720,6 +821,233 @@ def eval_path(cc, dev, tmp: str, p6: dict) -> None:
         raise SystemExit("load_predictor returned the wrong shapes or non-finite logits")
 
 
+def small_card_vs_cpu(dev, hp: dict, algorithm: str, what: str) -> float:
+    """A 32x32, batch-3 step and predict of ``algorithm`` under ``hp`` on the
+    card against the same on the CPU, at tolerance class bf16 (``BF16_TOL``:
+    the two devices round the bf16 convolutions and reductions at other
+    places). Thresholded counts are not compared: the sigmoid is bf16, whose
+    values near 0.75 lie 1/256 apart, so a 1-ulp difference of a logit moves a
+    pixel across the threshold. So ``train_dice`` and ``pos_weight_oc`` (a
+    ratio of two counts) are only finite-checked, and the OC logits, which
+    the OD prediction masks, are compared where both devices cut the same
+    ROI. Returns the worst error / tolerance."""
+    from wt_pse_tpu_torch.models.common import ModelConfig
+    from wt_pse_tpu_torch.train.eval import make_predict_fn_for
+    from wt_pse_tpu_torch.train.state import init_ensemble
+    from wt_pse_tpu_torch.train.step import EPS_KEYS, StepConfig, make_train_step
+
+    cfg = ModelConfig.from_hparams(hp)
+    batch = synthetic_batch(3, 1, 32, seed=1)
+    r = np.random.RandomState(2)
+    eps = {k: torch.from_numpy(r.randn(3, 1, 32, 32).astype(np.float32)) for k in EPS_KEYS}
+    out = {}
+    for d in ("cpu", dev):
+        state = init_ensemble(cfg, device=d, generator=torch.Generator().manual_seed(1),
+                              algorithm=algorithm)
+        nets = [ns.net for ns in state.net_states()]
+        pred = make_predict_fn_for(algorithm, nets, device=d)(batch["image"])
+        metrics = make_train_step(StepConfig(hp, 3, 1, distill=algorithm != JOINT), device=d)(
+            state, batch, eps={k: v.to(d) for k, v in eps.items()})
+        out[str(d)] = (pred, metrics)
+    (p_cpu, m_cpu), (p_gpu, m_gpu) = out["cpu"], out[str(dev)]
+    rtol, atol = BF16_TOL
+    errs = {}
+    same_roi = (torch.sigmoid(p_gpu[0].cpu()) > 0.75) == (torch.sigmoid(p_cpu[0]) > 0.75)
+    for name, a, b in (("predict od", p_gpu[0].cpu(), p_cpu[0]),
+                       ("predict oc", p_gpu[1].cpu() * same_roi, p_cpu[1] * same_roi)):
+        errs[name] = float((a - b).abs().max()) / (atol + rtol * float(b.abs().max()))
+    for k, v in m_cpu.items():
+        got = float(m_gpu[k])
+        if not math.isfinite(got):
+            raise SystemExit(f"{what}: non-finite {k} on the card")
+        if k.startswith(("loss_kd", "train_dice", "pos_weight")):
+            continue  # read after an Adam step (as phase 3) / thresholded counts
+        errs[k] = abs(got - float(v)) / (atol + rtol * abs(float(v)))
+    worst = max(errs.values())
+    log(f"{what}: card vs CPU (32x32, batch 3): worst error / bf16 tolerance "
+        f"(rtol {rtol}, atol {atol}) = {worst:.3f} ({max(errs, key=errs.get)}); "
+        f"{int((~same_roi).sum())} of {same_roi.numel()} OD pixels thresholded otherwise; "
+        f"pos_weight_oc card {float(m_gpu['pos_weight_oc']):.5f} CPU "
+        f"{float(m_cpu['pos_weight_oc']):.5f}")
+    if worst > 1.0:
+        raise SystemExit(f"{what}: the card disagrees with the CPU on a small input")
+    return worst
+
+
+def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
+    """Phase 8: the bf16 main path. Full-width bf16 steps from seeded weights
+    on one fixed batch (launch counts set to 0 just before, read just after:
+    8 of each bf16 kernel a step, no f32 launch), their time beside phase 4's
+    f32 step of this call, a profile of two more, the dtypes after the steps
+    and a falling loss; a bf16 Trainer for 3 epochs and one validation; a
+    small bf16 step and predict against the CPU; the peak device memory.
+    Returns the launch counts of the Trainer's run."""
+    from wt_pse_tpu_torch.config import default_hparams
+    from wt_pse_tpu_torch.models.common import ModelConfig
+    from wt_pse_tpu_torch.train.state import init_ensemble
+    from wt_pse_tpu_torch.train.step import StepConfig, make_train_step
+    from wt_pse_tpu_torch.train.trainer import Trainer
+
+    hp = dict(default_hparams("WT_PSE"), compute_dtype="bfloat16")
+    n_dom, per_dom, hw = 3, 3, 256
+    cfg = ModelConfig.from_hparams(hp)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_ensemble(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(StepConfig(hp, n_dom, per_dom), device=dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_batch(n_dom, per_dom, hw, seed=0).items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    zero_counts(cc)
+    times, losses = [], []
+    for _ in range(STEPS_BF16):
+        t0 = time.perf_counter()
+        metrics = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss_seg"]))
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise SystemExit(f"phase 8: non-finite metrics at step {state.step}: {bad}")
+    launches = read_counts(cc)
+    bf16_ms = statistics.median(times[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"phase 8 bf16 train steps ({STEPS_BF16}, 256x256, batch 9 = 3x3, one fixed batch): " +
+        ", ".join(f"{t * 1e3:.2f} ms" for t in times) + f"; steady median {bf16_ms:.2f} "
+        f"ms/step against the f32 step's {f32_step_ms:.2f} ms (phase 4, this call): "
+        f"{bf16_ms / f32_step_ms:.3f}x; peak device memory {peak:.2f} GiB (f32: phase 4)")
+    log(f"phase 8 loss_seg over the {STEPS_BF16} steps: " + ", ".join(f"{v:.5f}" for v in losses))
+    log(f"phase 8 covariance launches: {launches}")
+    expect_counts(launches, 0, 8 * STEPS_BF16, "phase 8 steps")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"phase 8: the bf16 loss did not fall over {STEPS_BF16} steps: {losses}")
+    dtypes = {str(t.dtype) for ns in state.net_states() for n, t in
+              list(ns.net.named_parameters()) + list(ns.net.named_buffers())
+              if not n.endswith("num_batches_tracked")}
+    log(f"phase 8 parameter and BatchNorm statistic dtypes after the steps: {sorted(dtypes)}")
+    if dtypes != {"torch.float32"}:
+        raise SystemExit(f"phase 8: parameters or BN statistics left f32: {dtypes}")
+    profile_steps(step, state, batch, gen, bf16_ms)
+
+    run = os.path.join(tmp, "bf16_run")
+    trainer = Trainer(hp, p6["train"], p6["val"], run, max_epoch=3, batch_size=9,
+                      interval_validate=1, label="OD", seed=1, eval_batch_size=8,
+                      val_visualization=False, device=dev)
+    torch.cuda.synchronize()
+    zero_counts(cc)
+    trainer.train()
+    t_launches = read_counts(cc)
+    steps = 3 * trainer.iter_per_epoch
+    expect_counts(t_launches, 0, 8 * steps, "phase 8 trainer")
+    val, t_val = timed(trainer.validate)
+    with open(os.path.join(run, "run_meta.json")) as f:
+        meta = json.load(f)
+    et = trainer.epoch_seconds
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss_seg"] for line in f if "loss_seg" in line]
+    log(f"phase 8 bf16 trainer epoch loss_seg {losses} (phase 6's f32 trainer, the same "
+        f"seed and pools: the first 3 of {p6['epoch_loss_seg']})")
+    log(f"phase 8 bf16 trainer (3 epochs x {trainer.iter_per_epoch} steps): epochs " +
+        ", ".join(f"{t:.3f}" for t in et) + f" s (steady median {statistics.median(et[1:]):.3f}"
+        f" s; phase 6's f32 epochs in this call: " +
+        ", ".join(f"{t:.3f}" for t in p6["trainer"].epoch_seconds) + " s); host enqueue " +
+        ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) + f" s; launches {t_launches}; "
+        f"validation {t_val:.3f} s: {json.dumps(val)}; run_meta compute_dtype "
+        f"{meta['compute_dtype']!r}")
+    if len(val) != 7 or not all(map(math.isfinite, val.values())) or \
+            meta["compute_dtype"] != "bfloat16":
+        raise SystemExit("phase 8: the bf16 trainer's validation or run_meta failed")
+    small_card_vs_cpu(dev, dict(hp), "WT_PSE", "phase 8 bf16 step and predict")
+    log(f"phase 8 peak device memory (steps, trainer, small check): "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    return t_launches
+
+
+def joint_path(cc, dev, tmp: str, p6: dict) -> None:
+    """Phase 9: the joint variant. A full-width ``Trainer(algorithm=joint)`` at
+    its default hparams for 3 epochs and one validation (no covariance
+    launch), one epoch with ``whitening=True`` (4 launches of each f32 kernel a
+    step), a small joint step and predict (whitening on, bf16) against the
+    CPU, and the eval CLI and ``load_predictor`` on the joint checkpoint: the
+    CLI's metrics must equal ``evaluate_domain`` on the reloaded nets."""
+    from PIL import Image
+
+    from wt_pse_tpu_torch.api import load_predictor
+    from wt_pse_tpu_torch.cli import test_visualization as eval_cli
+    from wt_pse_tpu_torch.config import default_hparams
+    from wt_pse_tpu_torch.data.fundus import encode_masks, load_fundus
+    from wt_pse_tpu_torch.io.checkpoint import save_ensemble
+    from wt_pse_tpu_torch.train.eval import evaluate_domain, make_predict_fn_joint
+    from wt_pse_tpu_torch.train.trainer import Trainer
+
+    hp = default_hparams(JOINT)
+    kw = dict(batch_size=9, interval_validate=1, label="OD", seed=1, eval_batch_size=8,
+              val_visualization=False, device=dev, algorithm=JOINT)
+    trainer = Trainer(hp, p6["train"], p6["val"], os.path.join(tmp, "joint"), max_epoch=3, **kw)
+    torch.cuda.synchronize()
+    zero_counts(cc)
+    trainer.train()
+    expect_counts(read_counts(cc), 0, 0, "phase 9 joint trainer")
+    val, t_val = timed(trainer.validate)
+    with open(os.path.join(tmp, "joint", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if "loss_seg" in line]
+    et = trainer.epoch_seconds
+    log(f"phase 9 joint trainer (3 epochs x {trainer.iter_per_epoch} steps, default hparams: "
+        f"whitening {hp['whitening']}): epochs " + ", ".join(f"{t:.3f}" for t in et) +
+        f" s (steady median {statistics.median(et[1:]):.3f} s); host enqueue " +
+        ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) + f" s; validation "
+        f"{t_val:.3f} s ({json.dumps(trainer.validation_seconds[-1])}): {json.dumps(val)}; "
+        "epoch losses " + json.dumps([{k: r[k] for k in ("loss_seg", "loss_seg_oc")}
+                                      for r in recs]))
+    if len(recs) != 3 or any("loss_kd" in r for r in recs) or not all(
+            math.isfinite(v) for r in recs for k, v in r.items() if k != "step"):
+        raise SystemExit(f"phase 9: expected 3 finite joint epochs without KD, got {recs}")
+    if len(val) != 7 or not all(map(math.isfinite, val.values())):
+        raise SystemExit(f"phase 9: the joint validation is not finite: {val}")
+
+    wt = Trainer(dict(hp, whitening=True), p6["train"], p6["val"],
+                 os.path.join(tmp, "joint_wt"), max_epoch=1, **kw)
+    torch.cuda.synchronize()
+    zero_counts(cc)
+    wt.train()
+    wt_launches = read_counts(cc)
+    log(f"phase 9 joint with whitening (1 epoch x {wt.iter_per_epoch} steps): "
+        f"{wt.epoch_seconds[0]:.3f} s; launches {wt_launches}")
+    expect_counts(wt_launches, 4 * wt.iter_per_epoch, 0, "phase 9 joint with whitening")
+    small_card_vs_cpu(dev, dict(hp, whitening=True, compute_dtype="bfloat16"), JOINT,
+                      "phase 9 joint step and predict (whitening on, bf16)")
+
+    ckpt = os.path.join(tmp, "joint.pth.tar")
+    save_ensemble(ckpt, trainer.state)
+    root = os.path.join(tmp, "fundus")  # phase 7's test split at native 512 and 640
+    argv = ["--device", dev.type, "--datasetTest", "3", "--label", "OD", "--data-dir", root,
+            "--model-file", ckpt, "--out", os.path.join(tmp, "joint_vis"), "--batch-size", "8",
+            "--algorithm", JOINT]
+    zero_counts(cc)
+    res, t_cli = timed(lambda: eval_cli.main(argv))
+    expect_counts(read_counts(cc), 0, 0, "phase 9 eval CLI")
+    nets = eval_cli.build_networks(ckpt, hp, algorithm=JOINT, device=dev)
+    domain = load_fundus(root, "test", [3], state="prediction")
+    masks = [encode_masks(np.asarray(lab, np.uint8)) for lab in domain.labels]
+    direct = evaluate_domain(make_predict_fn_joint(nets[0], nets[2], device=dev),
+                             torch.from_numpy(np.asarray(domain.images)).to(dev),
+                             [m[0] for m in masks], [m[1] for m in masks], "OD", 8,
+                             backend="native")
+    imgs412 = np.stack([np.asarray(Image.fromarray(im).resize((412, 412), Image.BICUBIC))
+                        for im in p6["val"].images])
+    predictor = load_predictor(ckpt, algorithm=JOINT, device=dev)
+    first = predictor(imgs412)
+    steady = [timed(lambda: predictor(imgs412))[1] for _ in range(3)]
+    ok = (first["od"].shape == first["oc"].shape == (len(imgs412), 412, 412)
+          and np.isfinite(first["od_logits"]).all() and np.isfinite(first["oc_logits"]).all())
+    log(f"phase 9 eval CLI on the joint checkpoint {t_cli:.3f} s: {json.dumps(res)}; "
+        f"evaluate_domain on the reloaded nets equal: {res == direct}; load_predictor masks "
+        f"{first['od'].shape}, finite {ok}, steady " + ", ".join(f"{t:.3f}" for t in steady) +
+        " s")
+    if res != direct or not ok:
+        raise SystemExit("phase 9: the joint eval CLI or load_predictor check failed")
+
+
 def time_in_turns(fns, flush, iters: int = 30) -> list[float]:
     """Median ms of one call of each of ``fns``, with ``flush()`` (which evicts
     the L2) before every call, the functions taken in turns in one loop."""
@@ -752,63 +1080,91 @@ def host_us(fn, iters: int = 100) -> float:
     return statistics.median(times) * 1e6
 
 
+def bf16_bmm_f32(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(one PyTorch call computing a @ b from bf16 operands with an f32 result,
+    its name): ``torch.bmm(..., out_dtype=torch.float32)`` where this torch
+    has it, else the bf16 ``torch.bmm`` (a bf16 result)."""
+    try:
+        torch.bmm(a[:1, :1], b[:1, :, :1], out_dtype=torch.float32)
+        return (lambda: torch.bmm(a, b, out_dtype=torch.float32)), \
+            "torch.bmm(bf16, bf16, out_dtype=float32)"
+    except (TypeError, RuntimeError):
+        return (lambda: torch.bmm(a, b)), "torch.bmm(bf16, bf16) (bf16 out: no out_dtype here)"
+
+
 def time_kernels(cc, dev, errs: dict) -> list[dict]:
-    """Phase 5, at the main-path shape. Cold L2: a 256 MB write before every
-    call leaves the L2 full of dirty lines, as the training step leaves it;
-    the call then also writes those back as it reads. That is ``ms``, the
-    yardstick the earlier times were taken with. A 256 MB read instead leaves
-    clean lines, which is what the bound assumes; those times are printed
-    beside it as a second reading."""
+    """Phase 5, at the main-path shape, for an f32 and a bf16 z. Cold L2: a
+    256 MB write before every call leaves the L2 full of dirty lines, as the
+    training step leaves it; the call then also writes those back as it
+    reads. That is ``ms``, the yardstick the earlier times were taken with. A
+    256 MB read instead leaves clean lines, which is what the bound assumes;
+    those times are printed beside it as a second reading."""
     b, c, h, w = MAIN_SHAPE
     hw = h * w
     gen = torch.Generator(device=dev).manual_seed(1)
-    z = torch.randn(MAIN_SHAPE, device=dev, generator=gen)
+    z32 = torch.randn(MAIN_SHAPE, device=dev, generator=gen)
     g = torch.randn(b, c, c, device=dev, generator=gen)
-    f = z.view(b, c, hw)
     s_sym = (g + g.transpose(1, 2)) / (hw - 1)
     buf = torch.zeros(64 * 1024 * 1024, device=dev)
     ops = 2.0 * b * c * c * hw
-    # the library's C entry points on preallocated outputs: the host time of a
-    # wrapper call less these is the wrapper's Python and allocations
     clib, cstream = cc._library(), torch.cuda.current_stream().cuda_stream
     partial = torch.empty(b * clib.wtpse_covariance_gram_chunks(b, c, hw) * c * c, device=dev)
-    cov, dz = torch.empty(b, c, c, device=dev), torch.empty_like(z)
-    c_calls = {"gram": lambda: clib.wtpse_covariance_gram_f32(
-                   z.data_ptr(), partial.data_ptr(), cov.data_ptr(), b, c, hw, cc.EPS, cstream),
-               "dz": lambda: clib.wtpse_covariance_dz_f32(
-                   z.data_ptr(), g.data_ptr(), dz.data_ptr(), b, c, hw, cstream)}
+    cov = torch.empty(b, c, c, device=dev)
     rows = []
-    # each with a PyTorch call that moves the same bytes and computes nothing
-    # (z.sum reads z once; z.clone reads it and writes a copy): what streaming
-    # those bytes costs on this card, beside the bound's 3.35 TB/s
-    for name, line, kern, plain, lib, stream, nbytes in (
-            ("covariance_gram", "wt_pse_tpu/ops/whitening_pallas.py:68",
-             lambda: cc.covariance_forward(z), lambda: cc.covariance_forward_plain(z),
-             lambda: torch.bmm(f, f.transpose(1, 2)), z.sum, 4.0 * (b * c * hw + b * c * c)),
-            ("covariance_dz", "wt_pse_tpu/ops/whitening_pallas.py:100",
-             lambda: cc.covariance_backward(z, g), lambda: cc.covariance_backward_plain(z, g),
-             lambda: torch.bmm(s_sym, f), z.clone, 4.0 * (2 * b * c * hw + b * c * c))):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
-        short = name.split("_")[1]
-        ms, lib_ms, plain_ms = time_in_turns((kern, lib, plain), buf.zero_)
-        row = {"name": name, "route": "cuda", "source": "wt_pse_tpu_torch/csrc/covariance.cu",
-               "replaces": line, "launches": None,
-               "max_abs_err": errs[short], "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": lib_ms}
-        log(f"{name}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms by "
-            f"{row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of it); plain "
-            f"{row['plain_ms']:.4f} ms; torch.bmm yardstick {row['library_ms']:.4f} ms "
-            f"(in turns, write flush)")
-        r_ms, r_lib, stream_ms = time_in_turns((kern, lib, stream), buf.sum)
-        log(f"{name} after a read flush: {r_ms:.4f} ms ({row['bound_ms'] / r_ms:.1%} of the "
-            f"bound); torch.bmm yardstick {r_lib:.4f} ms; z.{stream.__name__} moving the "
-            f"same bytes {stream_ms:.4f} ms")
-        h_kern, h_c, h_lib = host_us(kern), host_us(c_calls[short]), host_us(lib)
-        log(f"{name} host time a call: wrapper {h_kern:.1f} us (its C entry point alone "
-            f"{h_c:.1f} us), torch.bmm {h_lib:.1f} us")
-        rows.append(row)
+    for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        z = z32.to(dtype)
+        f = z.view(b, c, hw)
+        size = z.element_size()
+        dz = torch.empty_like(z)
+        # the library's C entry points on preallocated outputs: the host time
+        # of a wrapper call less these is the wrapper's Python and allocations
+        c_gram, c_dz = (getattr(clib, f"wtpse_covariance_{k}_{suffix}") for k in ("gram", "dz"))
+        c_calls = {"gram": lambda: c_gram(z.data_ptr(), partial.data_ptr(), cov.data_ptr(),
+                                          b, c, hw, cc.EPS, cstream),
+                   "dz": lambda: c_dz(z.data_ptr(), g.data_ptr(), dz.data_ptr(), b, c, hw,
+                                      cstream)}
+        if dtype == torch.float32:
+            lib_gram = lambda: torch.bmm(f, f.transpose(1, 2))
+            lib_dz = lambda: torch.bmm(s_sym, f)
+            lib_names = ("torch.bmm", "torch.bmm")
+        else:
+            lib_gram, gram_name = bf16_bmm_f32(f, f.transpose(1, 2))
+            s_bf16 = s_sym.to(dtype)
+            lib_dz = lambda: torch.bmm(s_bf16, f)
+            lib_names = (gram_name, "torch.bmm(bf16 S, bf16 z) (S rounded to bf16)")
+        tag = "" if dtype == torch.float32 else "_bf16"
+        # each with a PyTorch call that moves the same bytes and computes
+        # nothing (z.sum reads z once; z.clone reads it and writes a copy): what
+        # streaming those bytes costs on this card, beside the bound's 3.35 TB/s
+        for name, line, kern, plain, lib, lib_name, stream, nbytes in (
+                ("covariance_gram" + tag, "wt_pse_tpu/ops/whitening_pallas.py:68",
+                 lambda: cc.covariance_forward(z), lambda: cc.covariance_forward_plain(z),
+                 lib_gram, lib_names[0], z.sum, size * b * c * hw + 4.0 * b * c * c),
+                ("covariance_dz" + tag, "wt_pse_tpu/ops/whitening_pallas.py:100",
+                 lambda: cc.covariance_backward(z, g), lambda: cc.covariance_backward_plain(z, g),
+                 lib_dz, lib_names[1], z.clone, 2.0 * size * b * c * hw + 4.0 * b * c * c)):
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+            short = name.split("_")[1]
+            ms, lib_ms, plain_ms = time_in_turns((kern, lib, plain), buf.zero_)
+            row = {"name": name, "route": "cuda",
+                   "source": "wt_pse_tpu_torch/csrc/covariance.cu",
+                   "replaces": line, "launches": None,
+                   "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": lib_ms}
+            log(f"{name}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms by "
+                f"{row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of it); plain "
+                f"{row['plain_ms']:.4f} ms; {lib_name} yardstick {row['library_ms']:.4f} ms "
+                f"(in turns, write flush)")
+            r_ms, r_lib, stream_ms = time_in_turns((kern, lib, stream), buf.sum)
+            log(f"{name} after a read flush: {r_ms:.4f} ms ({row['bound_ms'] / r_ms:.1%} of the "
+                f"bound); {lib_name} yardstick {r_lib:.4f} ms; z.{stream.__name__} moving "
+                f"the same bytes {stream_ms:.4f} ms")
+            h_kern, h_c, h_lib = host_us(kern), host_us(c_calls[short]), host_us(lib)
+            log(f"{name} host time a call: wrapper {h_kern:.1f} us (its C entry point alone "
+                f"{h_c:.1f} us), {lib_name} {h_lib:.1f} us")
+            rows.append(row)
     return rows
 
 
@@ -842,13 +1198,16 @@ def main() -> int:
 
     errs = check_kernels(cc, dev)
     check_against_cpu(dev)
-    main_path(cc, dev)
+    f32_step_ms = main_path(cc, dev)
     rows = time_kernels(cc, dev, errs)
     with tempfile.TemporaryDirectory() as tmp:
         p6 = trainer_path(cc, dev, tmp)
         eval_path(cc, dev, tmp, p6)
-    for row in rows:  # the count of the trainer's run (phase 6)
-        row["launches"] = p6["launches"][row["name"].split("_")[1]]
+        bf16_launches = bf16_path(cc, dev, tmp, f32_step_ms, p6)
+        joint_path(cc, dev, tmp, p6)
+    for row in rows:  # the counts of the trainers' runs: f32 phase 6, bf16 phase 8
+        row["launches"] = (bf16_launches if row["name"].endswith("_bf16")
+                           else p6["launches"])[row["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,12 @@ where only PyTorch is installed (``tests/conftest.py`` imports JAX, hence
 
 The kernels are held against their plain versions at tolerance class
 ``f32_reduce`` (rtol 2e-5, relative to the scale of the result: a covariance
-entry against ``sqrt(cov_cc * cov_dd)``, dz against its largest magnitude);
+entry against ``sqrt(cov_cc * cov_dd)``, dz against its largest magnitude),
+for f32 and for bf16 input (a bf16 dz within 1 bf16 ulp of the plain version,
+which rounds its f32 result once as the kernel does, plus the f32 kernel's
+f32_reduce allowance for the summation order: ``bf16_ulp_error``);
+a bf16 step and a joint step (bf16, whitening on) launch the bf16 kernels and
+match the CPU at class ``bf16`` (rtol 2e-2, atol 1e-3);
 a step on the card against the same step on the CPU at class ``conv``;
 augmentation with injected draws against the CPU (images at ``f32_reduce``,
 masks exact); one Trainer epoch and a validation on the card; the device
@@ -20,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from wt_pse_tpu_torch.config import default_hparams
+from wt_pse_tpu_torch.config import JOINT, default_hparams
 from wt_pse_tpu_torch.data import augment
 from wt_pse_tpu_torch.data.fundus import FundusDomain
 from wt_pse_tpu_torch.models.common import ModelConfig
@@ -52,10 +57,10 @@ def assert_scaled_close(got, want):
     assert err <= F32_REDUCE_RTOL, f"f32_reduce: error / max|want| = {err:.3e}"
 
 
-@pytest.mark.parametrize("bad", ["float64", "bfloat16", "channels_last", "3d", "wide"])
+@pytest.mark.parametrize("bad", ["float64", "float16", "channels_last", "3d", "wide"])
 def test_wrapper_raises_on_unsupported_input(cuda, bad):
     z = torch.randn(2, 16, 8, 8, device=cuda)
-    z = {"float64": z.double(), "bfloat16": z.bfloat16(),
+    z = {"float64": z.double(), "float16": z.half(),
          "channels_last": z.contiguous(memory_format=torch.channels_last),
          "3d": z.reshape(2, 16, 64),
          "wide": torch.randn(2, 33, 8, 8, device=cuda)}[bad]
@@ -74,11 +79,11 @@ KERNEL_CASES = [((9, 16, 64, 64), 0), ((9, 16, 256, 256), 0), ((3, 16, 47, 47), 
                 ((1, 5, 1, 3), 0), ((9, 16, 64, 64), 1), ((2, 32, 16, 16), 1)]
 
 
-def seeded_inputs(cuda, shape, offset):
-    """z (a contiguous view ``offset`` floats into its storage) and g, seeded."""
+def seeded_inputs(cuda, shape, offset, dtype=torch.float32):
+    """z (a contiguous view ``offset`` elements into its storage) and g, seeded."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     n = int(np.prod(shape))
-    z = torch.randn(n + offset, device=cuda, generator=gen)[offset:].view(shape)
+    z = torch.randn(n + offset, device=cuda, generator=gen).to(dtype)[offset:].view(shape)
     g = torch.randn(shape[0], shape[1], shape[1], device=cuda, generator=gen)
     assert z.is_contiguous() and z.storage_offset() == offset
     return z, g
@@ -93,6 +98,62 @@ def test_kernels_match_plain_versions(cuda, shape, offset):
     assert (cc.covariance_forward.launches - f0, cc.covariance_backward.launches - b0) == (1, 1)
     assert_cov_close(got_f, cc.covariance_forward_plain(z))
     assert_scaled_close(got_b, cc.covariance_backward_plain(z, g))
+
+
+# bf16: HW % 8 == 0 with a 16-byte aligned base takes the 16-byte variants (8
+# values); HW % 8 == 4, an odd HW or a base 2 or 8 bytes past a 16-byte
+# boundary takes the narrow ones.
+BF16_CASES = [((9, 16, 64, 64), 0), ((9, 16, 256, 256), 0), ((3, 16, 18, 18), 0),
+              ((3, 16, 47, 47), 0), ((2, 32, 16, 16), 0), ((2, 32, 33, 31), 0),
+              ((2, 5, 8, 8), 0), ((9, 16, 64, 64), 1), ((9, 16, 64, 64), 4),
+              ((9, 16, 64, 64), 8)]
+
+
+def bf16_ulp_error(got, want) -> float:
+    """The largest ``|got - want| / (ulp + a)`` over the elements: one bf16
+    ulp of the larger magnitude, plus ``a = f32_reduce * max|want|``, what
+    the f32 dz kernel is allowed for its summation order. Both sides round
+    their f32 sums once; the allowance decides only where the 16 products of
+    a value cancel to the f32 noise floor, where another summation order
+    rounds the other way by several ulps of the small result."""
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return float(((got - want).abs() / (ulp + F32_REDUCE_RTOL * want.abs().max())).max())
+
+
+def assert_within_bf16_ulp(got, want):
+    worst = bf16_ulp_error(got, want)
+    assert worst <= 1.0, f"bf16 dz: {worst:.3f} of (1 ulp + f32_reduce)"
+
+
+@pytest.mark.parametrize("shape,offset", BF16_CASES)
+def test_bf16_kernels_match_plain_versions(cuda, shape, offset):
+    z, g = seeded_inputs(cuda, shape, offset, torch.bfloat16)
+    f0, b0 = cc.covariance_forward.launches_bf16, cc.covariance_backward.launches_bf16
+    got_f, got_b = cc.covariance_forward(z), cc.covariance_backward(z, g)
+    again_f, again_b = cc.covariance_forward(z), cc.covariance_backward(z, g)
+    torch.cuda.synchronize()
+    assert (cc.covariance_forward.launches_bf16 - f0,
+            cc.covariance_backward.launches_bf16 - b0) == (2, 2)
+    assert got_f.dtype == torch.float32 and got_b.dtype == torch.bfloat16
+    # measured on an H100 (chip_smoke.py phase 2, the same cases): the Gram
+    # within 5.3e-6 scaled, dz at most 0.99 of (1 ulp + f32_reduce)
+    assert_cov_close(got_f, cc.covariance_forward_plain(z))
+    assert_within_bf16_ulp(got_b, cc.covariance_backward_plain(z, g))
+    assert torch.equal(got_f, again_f) and torch.equal(got_b, again_b)
+
+
+def test_bf16_autograd_keeps_the_map_bf16(cuda):
+    """Under autocast too, the map reaches the kernels as bf16 and its
+    gradient comes back bf16."""
+    z = torch.randn(3, 16, 32, 32, device=cuda).bfloat16().requires_grad_(True)
+    f0 = cc.covariance_forward.launches_bf16
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        cov = feature_covariance(z)
+    cov.sum().backward()
+    assert cov.dtype == torch.float32 and z.grad.dtype == torch.bfloat16
+    assert cc.covariance_forward.launches_bf16 - f0 == 1
 
 
 @pytest.mark.parametrize("shape,offset", [((9, 16, 64, 64), 0), ((3, 16, 47, 47), 0),
@@ -149,6 +210,49 @@ def test_step_launches_both_kernels_eight_times_and_matches_the_cpu(cuda):
         assert np.isfinite(got), k
         if not k.startswith(("loss_kd", "train_dice")):
             np.testing.assert_allclose(got, float(v), rtol=5e-4, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("algorithm", ["WT_PSE", JOINT])
+def test_bf16_step_launches_the_bf16_kernels_and_matches_the_cpu(cuda, algorithm):
+    """A bf16 step (WT-PSE: 8 launches of each bf16 kernel; the joint variant
+    with whitening on: 4) on the card against the CPU, at class bf16: the two
+    devices round convolutions and reductions in bf16 at other places."""
+    hp = dict(default_hparams(algorithm), compute_dtype="bfloat16", whitening=True)
+    cfg = ModelConfig.from_hparams(hp)
+    b, hw = 3, 32
+    r = np.random.RandomState(6)
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    od = ((yy - 16) ** 2 + (xx - 16) ** 2 < 100).astype(np.float32)
+    batch = {"image": torch.from_numpy(r.rand(b, 3, hw, hw).astype(np.float32) * 2 - 1),
+             "target_od": torch.from_numpy(np.tile(od[None, None], (b, 1, 1, 1))),
+             "target_oc": torch.from_numpy(np.tile(od[None, None] * 0, (b, 1, 1, 1)))}
+    eps = {k: torch.from_numpy(r.randn(b, 1, hw, hw).astype(np.float32)) for k in EPS_KEYS}
+    step_cfg = StepConfig(hp, 3, 1, distill=algorithm != JOINT)
+    want = 8 if algorithm == "WT_PSE" else 4
+    out = []
+    for dev in ("cpu", cuda):
+        state = init_ensemble(cfg, device=dev, generator=torch.Generator().manual_seed(3),
+                              algorithm=algorithm)
+        counts = (cc.covariance_forward.launches, cc.covariance_backward.launches,
+                  cc.covariance_forward.launches_bf16, cc.covariance_backward.launches_bf16)
+        metrics = make_train_step(step_cfg, device=dev)(
+            state, batch, eps={k: v.to(dev) for k, v in eps.items()})
+        torch.cuda.synchronize()
+        launched = tuple(n - c for n, c in zip(
+            (cc.covariance_forward.launches, cc.covariance_backward.launches,
+             cc.covariance_forward.launches_bf16, cc.covariance_backward.launches_bf16),
+            counts))
+        assert launched == ((0, 0, 0, 0) if dev == "cpu" else (0, 0, want, want))
+        assert all(p.dtype == torch.float32 for ns in state.net_states()
+                   for p in ns.net.parameters())
+        out.append(metrics)
+    for k, v in out[0].items():
+        got = float(out[1][k])
+        assert np.isfinite(got), k
+        if k.startswith(("loss_seg", "loss_ins", "loss_dom")):
+            # class bf16; chip_smoke.py's small bf16 checks measure 0.28
+            # (WT-PSE) and 0.77 (joint) of it on an H100
+            np.testing.assert_allclose(got, float(v), rtol=2e-2, atol=1e-3, err_msg=k)
 
 
 def test_augmentation_matches_the_cpu(cuda):

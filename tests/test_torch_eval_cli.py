@@ -10,7 +10,7 @@ nets whose OD logits are lifted so that the ROI is not empty.
 - ``--save-images`` writes ``original_image/`` and ``overlay/`` at the native
   sizes; ``--packed`` is accepted and ignored;
 - a leaf with no slot raises unless ``--partial-load``; an orbax directory
-  and the joint algorithm raise.
+  raises (the joint algorithm's CLI is in ``tests/test_torch_joint_eval.py``).
 """
 
 import os
@@ -91,13 +91,8 @@ def test_a_leaf_without_a_slot_raises_unless_partial_load(setup, small, capsys, 
     assert np.isfinite(res["objective"])
 
 
-@pytest.mark.parametrize("case", ["orbax_dir", "joint"])
+@pytest.mark.parametrize("case", ["orbax_dir"])
 def test_what_is_not_ported_raises(setup, tmp_path, case):
-    _, root, ckpt = setup
-    if case == "orbax_dir":
-        with pytest.raises(ValueError, match="orbax"):
-            cli.main(_argv(root, str(tmp_path), "--device", "cpu"))
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 9"):
-            cli.main(_argv(root, ckpt, "--device", "cpu", "--algorithm",
-                           "Unet_nips2023_joint_shape_regularization"))
+    _, root, _ = setup
+    with pytest.raises(ValueError, match="orbax"):
+        cli.main(_argv(root, str(tmp_path), "--device", "cpu"))

@@ -16,9 +16,10 @@ import wt_pse_tpu_torch
 from wt_pse_tpu_torch import api
 from wt_pse_tpu_torch.cli import test_visualization as cli_eval
 from wt_pse_tpu_torch.cli import train as cli_train
-from wt_pse_tpu_torch.config import default_hparams
+from wt_pse_tpu_torch.config import JOINT, default_hparams
 from wt_pse_tpu_torch.data.augment import make_device_batch_fn
 from wt_pse_tpu_torch.models.common import ModelConfig
+from wt_pse_tpu_torch.models.joint import JointShapeReg
 from wt_pse_tpu_torch.models.shape_prior import ShapeStudent
 from wt_pse_tpu_torch.models.wt_pse import WTPSE
 from wt_pse_tpu_torch.train.eval import make_predict_fn
@@ -44,7 +45,8 @@ def test_importing_every_module_leaves_jax_out():
     mods = _modules()
     new = {"wt_pse_tpu_torch.api", "wt_pse_tpu_torch.cli.test_visualization",
            "wt_pse_tpu_torch.native", "wt_pse_tpu_torch.ops.losses",
-           "wt_pse_tpu_torch.ops.postprocess_device", "wt_pse_tpu_torch.train.eval_device"}
+           "wt_pse_tpu_torch.ops.postprocess_device", "wt_pse_tpu_torch.train.eval_device",
+           "wt_pse_tpu_torch.models.joint"}
     assert "wt_pse_tpu_torch.ops.covariance_cuda" in mods and new <= set(mods)
     assert len(mods) >= 40
     code = ("import sys, importlib\n"
@@ -95,6 +97,8 @@ ENTRY_POINTS = {
     "init_ensemble": lambda: init_ensemble(_cfg()),
     "WTPSE": lambda: WTPSE(_cfg()),
     "ShapeStudent": lambda: ShapeStudent(_cfg()),
+    "JointShapeReg": lambda: JointShapeReg(_cfg()),
+    "init_ensemble[joint]": lambda: init_ensemble(_cfg(), algorithm=JOINT),
     "make_train_step": lambda: make_train_step(StepConfig(default_hparams("WT_PSE"), 3, 1)),
     "make_predict_fn": lambda: make_predict_fn(
         *(m(_cfg(), device="cpu") for m in (WTPSE, ShapeStudent, WTPSE, ShapeStudent))),

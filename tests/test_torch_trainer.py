@@ -179,16 +179,17 @@ def test_resume_after_epoch_3_continues_bitwise(runs):
     assert os.path.exists(os.path.join(resumed.out, "run_meta.json"))
 
 
-@pytest.mark.parametrize("bad", ["label_none", "batch_below_domains", "dp", "joint",
-                                 "bf16", "train_viz_interval"])
+@pytest.mark.parametrize("bad", ["label_none", "batch_below_domains", "dp",
+                                 "train_viz_interval"])
 def test_unsupported_configurations_raise(tmp_path, bad):
     """fast_validation and train_visualization are ported (tests/
-    test_torch_eval_device.py, tests/test_torch_train_montage.py); bf16 is not."""
+    test_torch_eval_device.py, tests/test_torch_train_montage.py), and so are
+    bf16 and the joint algorithm (tests/test_torch_bf16.py,
+    tests/test_torch_joint*.py)."""
     dom = FundusDomain(images=np.zeros((2, SIZE, SIZE, 3), np.uint8),
                        labels=np.full((2, SIZE, SIZE), 255, np.uint8))
     kw = {"label_none": dict(label=None), "batch_below_domains": dict(batch_size=2),
-          "dp": dict(dp=True), "joint": dict(algorithm="Unet_nips2023_joint_shape_regularization"),
-          "bf16": dict(hparams=dict(default_hparams("WT_PSE"), compute_dtype="bfloat16")),
+          "dp": dict(dp=True),
           "train_viz_interval": dict(train_visualization=True, train_viz_interval=0)}[bad]
     err = (ValueError if bad in ("label_none", "batch_below_domains", "train_viz_interval")
            else NotImplementedError)

@@ -7,10 +7,11 @@
     out["od_logits"], ...        # logits (B, C, H, W), float32
 
 ``load_predictor`` reads the reference's 4-net ``.pth.tar``
-(``Trainer.py:282-288``) or one the port's Trainer wrote; the predict is the
-two-stage eval path (coarse OD -> thresholded ROI -> fine OC). The port is
-NCHW, so the logits come back (B, C, H, W) where the JAX package returns
-(B, H, W, C); the masks are the same.
+(``Trainer.py:282-288``) or one the port's Trainer wrote, of either algorithm;
+the predict is the two-stage eval path (coarse OD -> thresholded ROI -> fine
+OC), through the students or, for the joint variant, the nets' own priors.
+The port is NCHW, so the logits come back (B, C, H, W) where the JAX package
+returns (B, H, W, C); the masks are the same.
 """
 
 from __future__ import annotations
@@ -98,16 +99,15 @@ def load_predictor(model_file: str, hparams: dict | None = None,
     ``partial_load=True``: the reference's filtered partial load).
     ``image_size`` is the network resolution the checkpoint was trained at.
     """
-    from wt_pse_tpu_torch.cli.test_visualization import build_networks, require_ported
+    from wt_pse_tpu_torch.cli.test_visualization import build_networks
     from wt_pse_tpu_torch.config import default_hparams
     from wt_pse_tpu_torch.runtime import resolve_device
-    from wt_pse_tpu_torch.train.eval import make_predict_fn
+    from wt_pse_tpu_torch.train.eval import make_predict_fn_for
 
-    require_ported(algorithm)
     dev = resolve_device(device)
     hp = dict(default_hparams(algorithm))
     hp.update(hparams or {})
     n_classes = 1 if label in ("OC", "OD") else 2
     nets = build_networks(model_file, hp, n_classes, algorithm,
                           strict=not partial_load, device=dev)
-    return Predictor(make_predict_fn(*nets, device=dev), label, image_size, dev)
+    return Predictor(make_predict_fn_for(algorithm, nets, device=dev), label, image_size, dev)

@@ -6,17 +6,19 @@
         --data-dir /path/to/Fundus --model-file /path/to/checkpoint.pth.tar \\
         --out ./vis_out [--save-images]
 
-It rebuilds the 4 nets, loads a ``.pth.tar`` (the reference's layout, or one
-the port's Trainer wrote), runs the two-stage predict over the test split of
-the target domain on the card (``-g`` picks it) unless ``--device cpu`` is
-given, upsamples the logits to each label's native resolution, cleans them,
-prints the Dice / HD95 / ASD means and the scoring backend, and with
-``--save-images`` writes ``original_image/`` and ``overlay/``.
+It rebuilds the 4 nets of ``--algorithm`` (``WT_PSE``, or the joint variant,
+whose od and oc nets are ``JointShapeReg`` and predict through their own
+priors), loads a ``.pth.tar`` (the reference's layout, or one the port's
+Trainer wrote), runs the two-stage predict over the test split of the target
+domain on the card (``-g`` picks it) unless ``--device cpu`` is given,
+upsamples the logits to each label's native resolution, cleans them, prints
+the Dice / HD95 / ASD means and the scoring backend, and with
+``--save-images`` writes ``original_image/`` and ``overlay/``. Hparam
+leftovers such as ``--compute_dtype bfloat16`` set the nets' compute dtype.
 
 Not ported: an orbax checkpoint directory (the JAX Trainer's format; the port
-does not depend on orbax) raises ``ValueError``; the joint algorithm raises
-``NotImplementedError`` (``ROADMAP.md``, Queue 1 item 9). ``--packed`` is
-accepted and ignored: the port runs unpacked, the same math.
+does not depend on orbax) raises ``ValueError``. ``--packed`` is accepted and
+ignored: the port runs unpacked, the same math.
 """
 
 from __future__ import annotations
@@ -34,35 +36,25 @@ from wt_pse_tpu_torch.io.checkpoint import NET_KEYS, load_reference_checkpoint
 from wt_pse_tpu_torch.models.common import ModelConfig
 from wt_pse_tpu_torch.ops.postprocess import postprocess_logits
 from wt_pse_tpu_torch.runtime import resolve_device
-from wt_pse_tpu_torch.train.eval import evaluate_domain, make_predict_fn, resize_device
+from wt_pse_tpu_torch.train.eval import evaluate_domain, make_predict_fn_for, resize_device
 from wt_pse_tpu_torch.train.state import init_ensemble
-
-JOINT = "Unet_nips2023_joint_shape_regularization"
-
-
-def require_ported(algorithm: str) -> None:
-    if algorithm == JOINT:
-        raise NotImplementedError(
-            f"algorithm {algorithm!r} is not ported to wt_pse_tpu_torch yet; "
-            "see ROADMAP.md, Queue 1 item 9")
 
 
 def build_networks(model_file: str, hparams: dict, n_classes: int = 1,
                    algorithm: str = "WT_PSE", strict: bool = True,
                    device: str | torch.device = "cuda"):
-    """The 4 nets (od, od_shape, oc, oc_shape) on ``device`` with a
-    ``.pth.tar`` loaded into them (the reference's filtered partial load,
-    test_visulization.py:122-197). ``strict`` (the default) raises if a
+    """The 4 nets (od, od_shape, oc, oc_shape) of ``algorithm`` on ``device``
+    with a ``.pth.tar`` loaded into them (the reference's filtered partial
+    load, test_visulization.py:122-197). ``strict`` (the default) raises if a
     checkpoint leaf has no slot in the nets (another algorithm or config);
     ``strict=False`` skips it, as the reference does."""
-    require_ported(algorithm)
     if os.path.isdir(model_file):
         raise ValueError(
             f"{model_file} is a directory: an orbax checkpoint of the JAX Trainer. "
             "The port reads .pth.tar files only (orbax is not a dependency of the "
             "port); convert it with the JAX package first")
     cfg = ModelConfig.from_hparams(hparams, n_classes=n_classes)
-    state = init_ensemble(cfg, device=device)
+    state = init_ensemble(cfg, device=device, algorithm=algorithm)
     counts = load_reference_checkpoint(model_file, state, strict=strict)
     print(f"checkpoint leaves matched: model={counts.get('model', 0)} "
           f"shape={counts.get('model_shape', 0)} oc={counts.get('model_oc', 0)} "
@@ -104,7 +96,6 @@ def main(argv=None):
     from wt_pse_tpu_torch.utils.visualization import save_per_img
 
     args, left = build_parser().parse_known_args(argv)
-    require_ported(args.algorithm)
     left, args.configs = _repair_left_argv(list(left), list(args.configs))
     device = resolve_device(f"cuda:{args.gpu}" if args.device == "cuda" else "cpu")
     hparams = default_hparams(args.algorithm, args.dataset)
@@ -116,7 +107,7 @@ def main(argv=None):
     n_classes = 1 if args.label in ("OC", "OD") else 2
     nets = build_networks(args.model_file, hparams, n_classes, args.algorithm,
                           strict=not args.partial_load, device=device)
-    predict_fn = make_predict_fn(*nets, device=device)
+    predict_fn = make_predict_fn_for(args.algorithm, nets, device=device)
 
     domain = load_fundus(args.data_dir, "test", args.datasetTest, state="prediction")
     od_masks, oc_masks = [], []

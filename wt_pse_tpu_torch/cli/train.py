@@ -6,9 +6,11 @@
 
 It runs on the card (``-g`` picks its index) unless ``--device cpu`` is given,
 trains ``--running_times`` times and prints the mean±std of the 6 best
-metrics (train.py:174-175). Flags of slices not ported yet (``--dp``,
-``--dp-devices``) are accepted and make the Trainer raise
-``NotImplementedError``.
+metrics (train.py:174-175). ``--algorithm`` is ``WT_PSE`` (the default) or
+``Unet_nips2023_joint_shape_regularization``; the hparam leftover
+``--compute_dtype bfloat16`` trains in bf16 mixed precision. Flags of slices
+not ported yet (``--dp``, ``--dp-devices``) are accepted and make the Trainer
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -10,6 +10,11 @@ and ``wt_pse_tpu/io/torch_import.py:32-47`` (it imports neither):
 - ``c{k}`` in the 1x1 heads -> ``nn.Sequential`` index ``2k``;
 - DoubleConv children ``conv1/bn1/conv2/bn2`` -> ``double_conv.{0,1,3,4}``
   and DoubleConvWT children ``conv1/conv2`` -> ``double_conv.{0,2}``.
+
+The block kinds are read from the tree, so one mapping serves every net of
+either algorithm: ``WTPSE``, ``ShapeStudent`` and the joint variant's
+``JointShapeReg``, whose ``prior_dist`` is a student without a ``wt_model``
+(``tests/test_torch_joint.py`` loads its converted tree strictly).
 """
 
 from __future__ import annotations

@@ -10,6 +10,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from wt_pse_tpu_torch.config.hparams import COMPUTE_DTYPES
 from wt_pse_tpu_torch.models.layers import init_like_flax_
 from wt_pse_tpu_torch.runtime import resolve_device
 
@@ -25,15 +26,23 @@ class ModelConfig:
     cat_shape: bool = False
     shape_attention_coeffient: float = 0.3
     whitening: bool = True
+    # None (f32) or 'bfloat16': mixed-precision training, bf16 convs from f32
+    # master weights, f32 BatchNorm statistics and losses (hparam
+    # `compute_dtype`; the policy is in models/layers.py)
+    compute_dtype: str | None = None
+
+    @property
+    def dtype(self) -> torch.dtype | None:
+        """The torch type the convs compute in; ``None`` for f32."""
+        return None if self.compute_dtype is None else getattr(torch, self.compute_dtype)
 
     @classmethod
     def from_hparams(cls, hparams: dict, n_channels: int = 3,
                      n_classes: int = 1) -> "ModelConfig":
         dtype = hparams.get("compute_dtype", None)
-        if dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"compute_dtype={dtype!r}: the port runs f32 only so far; bf16 is "
-                "ROADMAP.md, Queue 1 item 7")
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype={dtype!r}: the port takes one of "
+                             f"{COMPUTE_DTYPES}")
         return cls(
             n_channels=n_channels,
             n_classes=n_classes,
@@ -42,6 +51,7 @@ class ModelConfig:
             cat_shape=bool(hparams.get("cat_shape", False)),
             shape_attention_coeffient=float(hparams.get("shape_attention_coeffient", 0.3)),
             whitening=bool(hparams.get("whitening", True)),
+            compute_dtype=None if dtype in (None, "float32") else dtype,
         )
 
 
@@ -57,11 +67,12 @@ def place(module: nn.Module, device: str | torch.device,
 
 def normal_like(t: torch.Tensor, eps: torch.Tensor | None,
                 generator: torch.Generator | None) -> torch.Tensor:
-    """The N(0, 1) draw of a sampling call: the injected ``eps`` if given,
-    else a draw from ``generator`` (on ``t``'s device). One of the two is
-    required — the port makes no draw from torch's global generator."""
+    """The N(0, 1) draw of a sampling call, in ``t``'s type: the injected
+    ``eps`` if given, else a draw from ``generator`` (on ``t``'s device). One
+    of the two is required — the port makes no draw from torch's global
+    generator."""
     if eps is not None:
-        return eps
+        return eps.to(t.dtype)
     if generator is None:
         raise ValueError("a sampling call needs eps= or generator=")
     return torch.randn(t.shape, generator=generator, device=t.device, dtype=t.dtype)

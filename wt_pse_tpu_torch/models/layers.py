@@ -13,6 +13,29 @@ re-implements for parity.
 
 Parameters are initialised the way the JAX package's Flax modules initialise
 them (:func:`init_like_flax_`), drawn from an explicit ``torch.Generator``.
+
+Compute dtype (``ModelConfig.compute_dtype``): every block takes a ``dtype``,
+``None`` for f32 or ``torch.bfloat16`` for the bf16 training mode, which is
+the JAX package's policy (``wt_pse_tpu/models/layers.py``). Each op casts
+explicitly; none runs under ``torch.autocast``, whose op lists differ between
+the CPU and CUDA (the CPU's would also narrow the plain covariance's einsum
+and the MMD's matmul) and which rounds a conv's bias into its output where
+JAX rounds twice. Per op:
+
+- conv (:class:`Conv2d`): input, weight and bias cast to bf16 (the weight is
+  an f32 master copy; its gradient comes back f32 through the cast), the conv
+  with f32 accumulation rounded to bf16, then the bias added in bf16 — two
+  roundings, as ``RefConv``'s ``conv + bias`` (``layers.py:139-156``);
+- BatchNorm: ``nn.BatchNorm2d`` with f32 parameters and running statistics
+  on a bf16 input, which computes the statistics and the normalisation in
+  f32 and returns bf16 (``layers.py:68-108``: statistics in f32, output cast
+  back to the input type); the running statistics stay f32;
+- 2x bilinear upsample (:func:`upsample2x`): bf16 in, one axis at a time,
+  f32 sums rounded to bf16 after each axis (``layers.py:211-226``: bf16
+  operands, f32 accumulation, a bf16 round between the two passes);
+- ReLU, max-pool, concat (the skip cast to the decoder's type), sigmoid and
+  the attention fusion run in the compute dtype; ``ConvStack1x1`` and
+  ``AttentionLayer`` are convs in it (``layers.py:375-404``).
 """
 
 from __future__ import annotations
@@ -29,13 +52,42 @@ from torch import nn
 _TRUNC_STD = 0.87962566103423978
 
 
-def conv3x3(cin: int, cout: int) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """Square same-padding conv with bias that computes in ``dtype`` (f32 when
+    ``None``): ``conv(x, w) + b`` with x, w and b cast to it and the bias added
+    after the conv's rounding, as ``RefConv`` does in bf16. The parameters
+    stay f32; their names are ``nn.Conv2d``'s."""
+
+    def __init__(self, cin: int, cout: int, ksize: int, dtype: torch.dtype | None = None):
+        super().__init__(cin, cout, ksize, 1, ksize // 2, bias=True)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return (F.conv2d(x.to(dt), self.weight.to(dt), None, 1, self.padding)
+                + self.bias.to(dt)[:, None, None])
+
+
+def conv3x3(cin: int, cout: int, dtype: torch.dtype | None = None) -> Conv2d:
     """3x3 same-padding conv with bias (reference convs are all bias=True)."""
-    return nn.Conv2d(cin, cout, 3, 1, 1, bias=True)
+    return Conv2d(cin, cout, 3, dtype)
 
 
-def conv1x1(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 1, 1, 0, bias=True)
+def conv1x1(cin: int, cout: int, dtype: torch.dtype | None = None) -> Conv2d:
+    return Conv2d(cin, cout, 1, dtype)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=False)``.
+    A bf16 ``x`` is resized one axis at a time, each pass summing in f32 and
+    rounding to bf16, as the JAX package's bf16 path does (its 0.25 / 0.75
+    weights are exact in bf16)."""
+    if x.dtype == torch.bfloat16:
+        x = F.interpolate(x, scale_factor=(2, 1), mode="bilinear", align_corners=False)
+        return F.interpolate(x, scale_factor=(1, 2), mode="bilinear", align_corners=False)
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
 
 
 @torch.no_grad()
@@ -62,12 +114,13 @@ class ConvD(nn.Module):
     """Encoder block: [maxpool if not first] -> conv/bn -> conv/bn/act -> conv/bn/act.
     No activation after bn1 (``wt_pse_tpu/models/layers.py:282-283``)."""
 
-    def __init__(self, cin: int, planes: int, first: bool = False):
+    def __init__(self, cin: int, planes: int, first: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.first = first
-        self.conv1, self.bn1 = conv3x3(cin, planes), nn.BatchNorm2d(planes)
-        self.conv2, self.bn2 = conv3x3(planes, planes), nn.BatchNorm2d(planes)
-        self.conv3, self.bn3 = conv3x3(planes, planes), nn.BatchNorm2d(planes)
+        self.conv1, self.bn1 = conv3x3(cin, planes, dtype), nn.BatchNorm2d(planes)
+        self.conv2, self.bn2 = conv3x3(planes, planes, dtype), nn.BatchNorm2d(planes)
+        self.conv3, self.bn3 = conv3x3(planes, planes, dtype), nn.BatchNorm2d(planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.first:
@@ -82,31 +135,30 @@ class ConvU(nn.Module):
     concat ``[prev, y]`` -> conv/bn/act (``layers.py:292-339``). The input has
     ``planes`` channels when first, else ``2 * planes``."""
 
-    def __init__(self, planes: int, first: bool = False):
+    def __init__(self, planes: int, first: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
         self.first = first
         if not first:
-            self.conv1, self.bn1 = conv3x3(2 * planes, planes), nn.BatchNorm2d(planes)
-        self.conv2, self.bn2 = conv1x1(planes, planes // 2), nn.BatchNorm2d(planes // 2)
-        self.conv3, self.bn3 = conv3x3(planes, planes), nn.BatchNorm2d(planes)
+            self.conv1, self.bn1 = conv3x3(2 * planes, planes, dtype), nn.BatchNorm2d(planes)
+        self.conv2, self.bn2 = conv1x1(planes, planes // 2, dtype), nn.BatchNorm2d(planes // 2)
+        self.conv3, self.bn3 = conv3x3(planes, planes, dtype), nn.BatchNorm2d(planes)
 
     def forward(self, x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
         if not self.first:
             x = F.relu(self.bn1(self.conv1(x)))
-        y = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = torch.cat([prev, y], dim=1)
+        y = F.relu(self.bn2(self.conv2(upsample2x(x))))
+        y = torch.cat([prev.to(y.dtype), y], dim=1)
         return F.relu(self.bn3(self.conv3(y)))
 
 
 class DoubleConv(nn.Module):
     """(conv3x3 -> BN -> ReLU) x 2 (``layers.py:342-356``)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, dtype: torch.dtype | None = None):
         super().__init__()
         self.double_conv = nn.Sequential(
-            conv3x3(cin, features), nn.BatchNorm2d(features), nn.ReLU(),
-            conv3x3(features, features), nn.BatchNorm2d(features), nn.ReLU(),
+            conv3x3(cin, features, dtype), nn.BatchNorm2d(features), nn.ReLU(),
+            conv3x3(features, features, dtype), nn.BatchNorm2d(features), nn.ReLU(),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -117,10 +169,10 @@ class DoubleConvWT(nn.Module):
     """conv3x3 -> ReLU -> conv3x3, no normalisation (``layers.py:359-372``).
     The output is pre-activation so the covariance loss sees the raw map."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, dtype: torch.dtype | None = None):
         super().__init__()
         self.double_conv = nn.Sequential(
-            conv3x3(cin, features), nn.ReLU(), conv3x3(features, features))
+            conv3x3(cin, features, dtype), nn.ReLU(), conv3x3(features, features, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.double_conv(x)
@@ -131,12 +183,12 @@ class ConvStack1x1(nn.Sequential):
     ``mu_prior`` / ``logvar_prior`` / ``outc`` / ``fusion`` heads
     (``layers.py:375-390``); convs sit at Sequential indices 0, 2, 4, ..."""
 
-    def __init__(self, cin: int, features: Sequence[int]):
+    def __init__(self, cin: int, features: Sequence[int], dtype: torch.dtype | None = None):
         mods: list[nn.Module] = []
         for i, f in enumerate(features):
             if i > 0:
                 mods.append(nn.ReLU())
-            mods.append(conv1x1(cin, f))
+            mods.append(conv1x1(cin, f, dtype))
             cin = f
         super().__init__(*mods)
 
@@ -145,9 +197,9 @@ class AttentionLayer(nn.Module):
     """1x1 conv + sigmoid gate (``layers.py:393-404``). Returns
     (sigmoid(logits), logits)."""
 
-    def __init__(self, cin: int = 1, features: int = 1):
+    def __init__(self, cin: int = 1, features: int = 1, dtype: torch.dtype | None = None):
         super().__init__()
-        self.layer1 = conv1x1(cin, features)
+        self.layer1 = conv1x1(cin, features, dtype)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         logits = self.layer1(x)

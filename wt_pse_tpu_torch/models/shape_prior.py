@@ -8,8 +8,10 @@ Sampling semantics (both trained into the released checkpoint):
 - student: ``mu`` and ``std`` go through ``nan_to_num``, then the quirk
   ``z = (mu + std*eps) * std + mu`` (``shape_prior.py:152-160``).
 
-Every draw takes an injected ``eps`` or an explicit ``torch.Generator``.
-Train/eval mode is the module's own ``training`` flag.
+Every draw takes an injected ``eps`` or an explicit ``torch.Generator``, and
+the scrubs, the draw and the reparameterisations are in the compute dtype
+(``shape_prior.py:89-93,152-160``). Train/eval mode is the module's own
+``training`` flag.
 """
 
 from __future__ import annotations
@@ -23,17 +25,17 @@ from wt_pse_tpu_torch.models.deepwt import DeepWT
 from wt_pse_tpu_torch.models.layers import ConvD, ConvStack1x1, ConvU, DoubleConv
 
 
-def _trunk(m: nn.Module, n: int) -> None:
-    m.down1 = ConvD(n, 2 * n)
-    m.down2 = ConvD(2 * n, 4 * n)
-    m.down3 = ConvD(4 * n, 8 * n)
-    m.down4 = ConvD(8 * n, 16 * n)
-    m.up1 = ConvU(16 * n, first=True)
-    m.up2 = ConvU(8 * n)
-    m.up3 = ConvU(4 * n)
-    m.up4 = ConvU(2 * n)
-    m.mu_prior = ConvStack1x1(2 * n, [2 * n, 8, 1])
-    m.logvar_prior = ConvStack1x1(2 * n, [2 * n, 8, 1])
+def _trunk(m: nn.Module, n: int, dt: torch.dtype | None) -> None:
+    m.down1 = ConvD(n, 2 * n, dtype=dt)
+    m.down2 = ConvD(2 * n, 4 * n, dtype=dt)
+    m.down3 = ConvD(4 * n, 8 * n, dtype=dt)
+    m.down4 = ConvD(8 * n, 16 * n, dtype=dt)
+    m.up1 = ConvU(16 * n, first=True, dtype=dt)
+    m.up2 = ConvU(8 * n, dtype=dt)
+    m.up3 = ConvU(4 * n, dtype=dt)
+    m.up4 = ConvU(2 * n, dtype=dt)
+    m.mu_prior = ConvStack1x1(2 * n, [2 * n, 8, 1], dt)
+    m.logvar_prior = ConvStack1x1(2 * n, [2 * n, 8, 1], dt)
 
 
 class TeacherShapePrior(nn.Module):
@@ -48,13 +50,13 @@ class TeacherShapePrior(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
-        n = cfg.base_width
+        n, dt = cfg.base_width, cfg.dtype
         if cfg.whitening:  # the mask has one channel
-            self.inc = DoubleConv(1, n)
-            self.fusion = ConvStack1x1(2 * n, [n])
+            self.inc = DoubleConv(1, n, dt)
+            self.fusion = ConvStack1x1(2 * n, [n], dt)
         else:
-            self.inc = DoubleConv(1 + cfg.n_channels, n)
-        _trunk(self, n)
+            self.inc = DoubleConv(1 + cfg.n_channels, n, dt)
+        _trunk(self, n, dt)
         place(self, device, generator)
 
     def extract(self, inputs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -78,17 +80,23 @@ class TeacherShapePrior(nn.Module):
 
 
 class ShapeStudent(nn.Module):
-    """Test-time shape net over its own DeepWT features (no mask input)."""
+    """Test-time shape net over its own DeepWT features (no mask input).
+
+    ``own_wt=False`` builds it without a ``wt_model``: the joint variant's
+    x-conditioned prior reads the DeepWT maps of the net that owns it, and
+    the JAX ``JointShapeReg`` creates no ``prior_dist.wt_model`` parameters
+    (``wt_pse_tpu/models/joint.py:96-100``)."""
 
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, own_wt: bool = True):
         super().__init__()
         self.cfg = cfg
-        n = cfg.base_width
-        self.wt_model = DeepWT(cfg.n_channels, n, whitening=cfg.whitening)
+        n, dt = cfg.base_width, cfg.dtype
+        if own_wt:
+            self.wt_model = DeepWT(cfg.n_channels, n, whitening=cfg.whitening, dtype=dt)
         if not cfg.whitening:
-            self.inc = DoubleConv(cfg.n_channels, n)
-        _trunk(self, n)
+            self.inc = DoubleConv(cfg.n_channels, n, dt)
+        _trunk(self, n, dt)
         place(self, device, generator)
 
     def extract(self, inputs: torch.Tensor) -> torch.Tensor:

@@ -23,30 +23,44 @@ from wt_pse_tpu_torch.models.layers import AttentionLayer, ConvD, ConvStack1x1, 
 from wt_pse_tpu_torch.models.shape_prior import TeacherShapePrior
 
 
+def seg_trunk(m: nn.Module, cfg: ModelConfig) -> None:
+    """The segmentation U-Net's blocks (``inc``, ``down1..4``, ``up1..4``),
+    shared by :class:`WTPSE` and the joint variant."""
+    n, dt = cfg.base_width, cfg.dtype
+    m.inc = ConvD(cfg.n_channels, n, first=True, dtype=dt)
+    m.down1 = ConvD(n, 2 * n, dtype=dt)
+    m.down2 = ConvD(2 * n, 4 * n, dtype=dt)
+    m.down3 = ConvD(4 * n, 8 * n, dtype=dt)
+    m.down4 = ConvD(8 * n, 16 * n, dtype=dt)
+    m.up1 = ConvU(16 * n, first=True, dtype=dt)
+    m.up2 = ConvU(8 * n, dtype=dt)
+    m.up3 = ConvU(4 * n, dtype=dt)
+    m.up4 = ConvU(2 * n, dtype=dt)
+
+
+def seg_heads(m: nn.Module, cfg: ModelConfig) -> None:
+    """The attention gate (under ``shape_prior`` and ``shape_attention``), the
+    embedding head ``mu`` and ``outc``, in the order the state_dict lists them."""
+    n, dt = cfg.base_width, cfg.dtype
+    if cfg.shape_prior and cfg.shape_attention:
+        m.attention_layer = AttentionLayer(1, 1, dt)
+    m.mu = ConvStack1x1(2 * n, [2 * n, cfg.feature_dim], dt)
+    fused = cfg.feature_dim + (1 if cfg.shape_prior and cfg.cat_shape else 0)
+    m.outc = ConvStack1x1(fused, [cfg.n_classes], dt)
+
+
 class WTPSE(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
-        n = cfg.base_width
-        self.inc = ConvD(cfg.n_channels, n, first=True)
-        self.down1 = ConvD(n, 2 * n)
-        self.down2 = ConvD(2 * n, 4 * n)
-        self.down3 = ConvD(4 * n, 8 * n)
-        self.down4 = ConvD(8 * n, 16 * n)
-        self.up1 = ConvU(16 * n, first=True)
-        self.up2 = ConvU(8 * n)
-        self.up3 = ConvU(4 * n)
-        self.up4 = ConvU(2 * n)
+        seg_trunk(self, cfg)
         if cfg.shape_prior:
-            self.wt_model = DeepWT(cfg.n_channels, n, whitening=cfg.whitening)
+            self.wt_model = DeepWT(cfg.n_channels, cfg.base_width, whitening=cfg.whitening,
+                                   dtype=cfg.dtype)
             # placed on the CPU here; the whole net is initialised and moved below
             self.prior_dist = TeacherShapePrior(cfg, device="cpu", generator=generator)
-            if cfg.shape_attention:
-                self.attention_layer = AttentionLayer(1, 1)
-        self.mu = ConvStack1x1(2 * n, [2 * n, cfg.feature_dim])
-        fused = cfg.feature_dim + (1 if cfg.shape_prior and cfg.cat_shape else 0)
-        self.outc = ConvStack1x1(fused, [cfg.n_classes])
+        seg_heads(self, cfg)
         place(self, device, generator)
 
     def embed(self, inputs: torch.Tensor) -> torch.Tensor:

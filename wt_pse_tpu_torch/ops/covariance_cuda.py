@@ -12,10 +12,13 @@ on the card and what the design does about it.
 
 Each wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel, or raises on what the kernel does not take
-(anything but contiguous f32 NCHW with C <= 32): there is no fallback. The
-library picks each kernel's 16-byte variant when HW % 4 == 0 and the pointers
-are 16-byte aligned, and the same kernel's 4-byte variant otherwise. Each
-wrapper counts its launches in ``.launches``, a plain integer.
+(anything but contiguous f32 or bf16 NCHW with C <= 32): there is no fallback,
+and a bf16 map goes into the kernel as bf16, with no f32 copy. The covariance
+is f32 for either; dz has z's type. The library picks each kernel's 16-byte
+variant when HW is a multiple of the values in 16 bytes (4 f32, 8 bf16) and
+the pointers are 16-byte aligned, and the same kernel's narrow variant
+otherwise. Each wrapper counts its launches, a plain integer for each element
+type: ``.launches`` (f32) and ``.launches_bf16``.
 
 The library is built with ``nvcc`` at first use into ``build/kernels/`` at the
 root of the checkout (named by the hash of the source, so an edit rebuilds),
@@ -71,11 +74,16 @@ def _library() -> ctypes.CDLL:
     lib.wtpse_covariance_gram_chunks.restype = i
     lib.wtpse_covariance_max_c.argtypes = []
     lib.wtpse_covariance_max_c.restype = i
-    lib.wtpse_covariance_gram_f32.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
-    lib.wtpse_covariance_gram_f32.restype = i
-    lib.wtpse_covariance_dz_f32.argtypes = [p, p, p, i, i, i, p]
-    lib.wtpse_covariance_dz_f32.restype = i
+    for t in ("f32", "bf16"):
+        gram = getattr(lib, f"wtpse_covariance_gram_{t}")
+        gram.argtypes, gram.restype = [p, p, p, i, i, i, ctypes.c_float, p], i
+        dz = getattr(lib, f"wtpse_covariance_dz_{t}")
+        dz.argtypes, dz.restype = [p, p, p, i, i, i, p], i
     return lib
+
+
+# the library's name for each element type the kernels take
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 @functools.cache
@@ -95,8 +103,8 @@ def _gram_chunks(device_index: int, b: int, c: int, hw: int) -> int:
 def _check_cuda_input(z: torch.Tensor) -> tuple[int, int, int]:
     if z.device.type != "cuda":
         raise ValueError(f"covariance kernels take CUDA or CPU tensors, got {z.device}")
-    if z.dtype != torch.float32:
-        raise TypeError(f"covariance kernels take float32, got {z.dtype}")
+    if z.dtype not in _SUFFIX:
+        raise TypeError(f"covariance kernels take float32 or bfloat16, got {z.dtype}")
     if z.dim() != 4 or not z.is_contiguous():
         raise ValueError("covariance kernels take a contiguous NCHW tensor, got "
                          f"shape {tuple(z.shape)} strides {z.stride()}")
@@ -119,7 +127,8 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
-# -- plain versions: exact f32 (f64 stays f64) -------------------------------
+# -- plain versions: exact f32 (f64 stays f64; bf16 is widened, and dz is
+# rounded back to bf16 once) --------------------------------------------------
 
 
 def _plain_dtype(z: torch.Tensor) -> torch.dtype:
@@ -156,14 +165,19 @@ def covariance_forward(z: torch.Tensor) -> torch.Tensor:
         partial = torch.empty((b, n_chunks, c * c), dtype=torch.float32, device=dev)
         cov = torch.empty((b, c, c), dtype=torch.float32, device=dev)
         stream = _raw_stream(dev.index)
-        rc = lib.wtpse_covariance_gram_f32(z.data_ptr(), partial.data_ptr(),
-                                           cov.data_ptr(), b, c, hw, EPS, stream)
+        suffix = _SUFFIX[z.dtype]
+        rc = getattr(lib, f"wtpse_covariance_gram_{suffix}")(
+            z.data_ptr(), partial.data_ptr(), cov.data_ptr(), b, c, hw, EPS, stream)
     _raise_on(rc, "covariance gram")
-    covariance_forward.launches += 1
+    if suffix == "bf16":
+        covariance_forward.launches_bf16 += 1
+    else:
+        covariance_forward.launches += 1
     return cov
 
 
 covariance_forward.launches = 0
+covariance_forward.launches_bf16 = 0
 
 
 def covariance_backward(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -182,20 +196,27 @@ def covariance_backward(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     dev = z.device
     with torch.cuda.device(dev):
         stream = _raw_stream(dev.index)
-        rc = lib.wtpse_covariance_dz_f32(z.data_ptr(), g.data_ptr(), dz.data_ptr(),
-                                         b, c, hw, stream)
+        suffix = _SUFFIX[z.dtype]
+        rc = getattr(lib, f"wtpse_covariance_dz_{suffix}")(
+            z.data_ptr(), g.data_ptr(), dz.data_ptr(), b, c, hw, stream)
     _raise_on(rc, "covariance dz")
-    covariance_backward.launches += 1
+    if suffix == "bf16":
+        covariance_backward.launches_bf16 += 1
+    else:
+        covariance_backward.launches += 1
     return dz
 
 
 covariance_backward.launches = 0
+covariance_backward.launches_bf16 = 0
 
 
 class Covariance(torch.autograd.Function):
     """Forward: kernel 1 (the Gram); backward: kernel 2 (dz). The JAX
     ``custom_vjp`` ``feature_covariance_pallas`` is the model. ``z`` is saved
-    for the backward, so callers must not modify it in place afterwards."""
+    for the backward, so callers must not modify it in place afterwards. It
+    takes ``z`` in the type it comes in, bf16 under autocast too: no
+    ``custom_fwd(cast_inputs=...)`` widens it before the kernel."""
 
     @staticmethod
     def forward(ctx, z: torch.Tensor) -> torch.Tensor:

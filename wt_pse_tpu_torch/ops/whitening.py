@@ -3,7 +3,9 @@
 
 - per-feature-map covariance ``f_cor = f fᵀ / (HW - 1) + 1e-5·I`` over an NCHW
   map, through the hand-written kernels of ``ops/covariance_cuda.py`` (on CUDA
-  always; the hparam ``use_pallas_whitening`` is a TPU choice and is ignored);
+  always; the hparam ``use_pallas_whitening`` is a TPU choice and is ignored).
+  A bf16 map (the bf16 mode) goes into the kernels as bf16, with no f32 copy;
+  the covariance comes back f32 and every loss below stays f32;
 - instance loss = hinge(sum |upper-tri(f_cor)| - margin) / C(C-1)/2 plus
   hinge(sum |diag(f_cor) - 1| - margin) / C, each averaged over the batch;
 - domain loss = mean pairwise Gaussian-kernel MMD (gamma 1) between the

@@ -9,6 +9,11 @@ of ``wt_pse_tpu/train/eval.py``):
        -> sigmoid > 0.75 -> largest CC -> fill holes -> Dice / HD95 / ASD
   an empty prediction scores HD = ASD = 100                  (Trainer.py:221-233)
 
+The joint variant's predict (:func:`make_predict_fn_joint`) is the same two
+stages with each net's own prior and no student. The nets predict in their
+compute dtype; the predict returns the logits as f32, for the upsample and
+the scoring.
+
 The predict runs on the card in chunks of ``batch_size`` images of one native
 resolution, with one device-to-host copy a chunk. The upsample runs on the
 host in f64 (``resize='host'``, the default, as in the JAX package) or on the
@@ -27,6 +32,8 @@ import numpy as np
 import torch
 
 from wt_pse_tpu_torch import native
+from wt_pse_tpu_torch.config.hparams import JOINT
+from wt_pse_tpu_torch.models.joint import JointShapeReg
 from wt_pse_tpu_torch.models.shape_prior import ShapeStudent
 from wt_pse_tpu_torch.models.wt_pse import WTPSE
 from wt_pse_tpu_torch.ops import metrics as M
@@ -48,15 +55,39 @@ def make_predict_fn(main_od: WTPSE, stud_od: ShapeStudent, main_oc: WTPSE,
             return main.predict_with_shape(x, stud.sample_from_image(x))
         return main.predict_no_shape(x)
 
+    return _two_stage(nets, lambda x: stage(main_od, stud_od, x),
+                      lambda x: stage(main_oc, stud_oc, x), dev)
+
+
+def make_predict_fn_joint(main_od: JointShapeReg, main_oc: JointShapeReg, *,
+                          device: str | torch.device = "cuda"):
+    """The joint variant's two-stage predict (``wt_pse_tpu/train/eval.py:89-116``):
+    each net through its own prior, at the prior's mean; no student."""
+    return _two_stage((main_od, main_oc), main_od.predict, main_oc.predict,
+                      resolve_device(device))
+
+
+def make_predict_fn_for(algorithm: str, nets, *, device: str | torch.device = "cuda"):
+    """The predict of ``algorithm`` over the 4 nets (od, od_shape, oc, oc_shape);
+    the joint variant uses only od and oc."""
+    if algorithm == JOINT:
+        return make_predict_fn_joint(nets[0], nets[2], device=device)
+    return make_predict_fn(*nets, device=device)
+
+
+def _two_stage(nets, stage_od, stage_oc, dev: torch.device):
+    """``predict(image)``: OD logits, then the OC logits on the ROI that the
+    thresholded OD logits cut, masked by it; both returned as f32."""
+
     @torch.no_grad()
     def predict(image) -> tuple[torch.Tensor, torch.Tensor]:
         for net in nets:
             net.eval()
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
-        out_od = stage(main_od, stud_od, image)
+        out_od = stage_od(image)
         od_pred = (torch.sigmoid(out_od) > 0.75).to(image.dtype)
         roi = (image + 1.0) * od_pred - 1.0
-        return out_od, stage(main_oc, stud_oc, roi) * od_pred
+        return out_od.float(), stage_oc(roi).float() * od_pred
 
     return predict
 

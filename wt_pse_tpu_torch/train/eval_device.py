@@ -4,6 +4,8 @@ component and hole fill (``ops/postprocess_device.py``), then Dice, ASD and
 HD95 with the exact separable EDT (``ops/losses.distance_transform``) and
 medpy's surface semantics (4-connected border = mask ^ erosion).
 
+The predict hands over f32 logits whatever the nets' compute dtype.
+
 Model selection needs a consistent, cheap objective every few epochs, not
 the native-resolution numbers a paper reports; the host path
 (``train/eval.py``) stays the evaluator for those. Here the host receives

@@ -2,7 +2,8 @@
 
 Four disjoint nets, each with its own Adam (``betas=(0.9, 0.99)``, eps 1e-8,
 the reference's ``train.py:120-138``). Unlike the JAX pytree, the state is
-mutable: the step updates the nets and optimizers in place.
+mutable: the step updates the nets and optimizers in place. The parameters
+are f32 in either compute dtype (Adam updates f32 master weights).
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ import dataclasses
 import torch
 from torch import nn
 
+from wt_pse_tpu_torch.config.hparams import JOINT
 from wt_pse_tpu_torch.models.common import ModelConfig
+from wt_pse_tpu_torch.models.joint import JointShapeReg
 from wt_pse_tpu_torch.models.shape_prior import ShapeStudent
 from wt_pse_tpu_torch.models.wt_pse import WTPSE
 from wt_pse_tpu_torch.runtime import resolve_device
@@ -52,16 +55,21 @@ class WTPSETrainState:
 def init_ensemble(cfg: ModelConfig, *, device: str | torch.device = "cuda",
                   generator: torch.Generator | None = None,
                   lr_od: float = 5e-4, lr_od_shape: float = 5e-4,
-                  lr_oc: float = 5e-4, lr_oc_shape: float = 5e-4) -> WTPSETrainState:
+                  lr_oc: float = 5e-4, lr_oc_shape: float = 5e-4,
+                  algorithm: str = "WT_PSE") -> WTPSETrainState:
     """Build all four nets with Flax-style initial weights drawn in the order
     od, od_shape, oc, oc_shape from ``generator`` (seed 0 when omitted), on
-    ``device``, each with its Adam. Default learning rates match train.py:197-200."""
+    ``device``, each with its Adam. Default learning rates match train.py:197-200.
+    For the joint algorithm the od and oc nets are :class:`JointShapeReg`; the
+    two students are built as the JAX Trainer builds them (they are in the
+    checkpoint layout) and never trained (``wt_pse_tpu/train/trainer.py:208-220``)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    od = WTPSE(cfg, device=dev, generator=generator)
+    main = JointShapeReg if algorithm == JOINT else WTPSE
+    od = main(cfg, device=dev, generator=generator)
     od_shape = ShapeStudent(cfg, device=dev, generator=generator)
-    oc = WTPSE(cfg, device=dev, generator=generator)
+    oc = main(cfg, device=dev, generator=generator)
     oc_shape = ShapeStudent(cfg, device=dev, generator=generator)
     return WTPSETrainState(
         od=NetState.create(od, lr_od), od_shape=NetState.create(od_shape, lr_od_shape),

@@ -17,12 +17,20 @@ Order of operations, as in the JAX step:
   stats a second time with the same batch;
 - the ROI comes from the pre-update phase-1 logits, detached;
 - a non-finite ``pos_weight`` becomes 1.0;
-- the shape phases run only when whitening and shape_prior are both on (the
-  JAX step's third gate, ``distill``, is off only for the joint variant, which
-  is not ported yet).
+- the shape phases run only when ``distill``, whitening and shape_prior are
+  all on; ``distill`` is off for the joint variant, whose prior trains inside
+  its seg phases, which add the whitening losses over its own DeepWT maps
+  when whitening is on (``wt_pse_tpu/train/step.py:65-73,229,260``).
 
-Metrics stay device tensors: the step makes no ``.item()`` call. Tensors are
-NCHW; the batch is domain-contiguous (domain d holds rows
+bf16 mode (``compute_dtype='bfloat16'``): the nets return bf16 logits and
+maps; the seg, KD and whitening losses are computed in f32 from them (the
+covariance kernels take the bf16 maps and return f32), and Adam updates the
+f32 parameters. The train Dice and the ROI threshold the sigmoid of the
+compute-dtype logits, as the JAX step does; the ROI keeps the image's type
+(``step.py:235``).
+
+Metrics stay f32 device tensors: the step makes no ``.item()`` call. Tensors
+are NCHW; the batch is domain-contiguous (domain d holds rows
 ``[d*per_domain_batch, (d+1)*per_domain_batch)``), which the MMD slicing needs.
 """
 
@@ -59,12 +67,14 @@ def bce_logits_pos_weight(logits: torch.Tensor, targets: torch.Tensor,
 
 class StepConfig:
     """Python-level configuration of the step (``step.py:53-103``). The hparams
-    ``use_pallas_whitening`` and ``space_to_depth`` are accepted and ignored."""
+    ``use_pallas_whitening`` and ``space_to_depth`` are accepted and ignored.
+    ``distill=False`` (the joint variant) skips the shape phases 2 and 4."""
 
     def __init__(self, hparams: dict, domain_num: int, per_domain_batch: int,
-                 replicate_ref_quirks: bool = True):
+                 replicate_ref_quirks: bool = True, distill: bool = True):
         self.whitening = bool(hparams.get("whitening", True))
         self.shape_prior = bool(hparams.get("shape_prior", True))
+        self.distill = distill
         self.instance_wt_gm = float(hparams.get("instance_wt_gm", 1))
         self.domain_wt_gm = float(hparams.get("domain_wt_gm", 1))
         self.margin = float(hparams.get("margin", 0))
@@ -81,7 +91,7 @@ def _seg_phase(ns: NetState, image, target, wt_input, seg_loss_fn, cfg: StepConf
     net.train()
     opt.zero_grad(set_to_none=True)
     out, _att, wt_feats = net(image, target, wt_input, eps=eps, generator=generator)
-    loss_seg = seg_loss_fn(out)
+    loss_seg = seg_loss_fn(out.float())
     if cfg.whitening and wt_feats is not None:
         inst, dom = main_whitening_loss(wt_feats, cfg.domain_num, cfg.per_domain_batch,
                                         cfg.margin, cfg.replicate_ref_quirks)
@@ -113,7 +123,7 @@ def _shape_phase(main: NetState, stud: NetState, image, mask, cfg: StepConfig,
         stud.opt.zero_grad(set_to_none=True)
         _z_s, mu_s, wt_feats = stud.net.update_forward(image, eps=eps_student,
                                                        generator=generator)
-        kd = torch.mean(torch.square(mu_t - mu_s))
+        kd = torch.mean(torch.square(mu_t.float() - mu_s.float()))
         inst_total, inst_ij, inst_ii, dom = student_whitening_loss(
             wt_feats, cfg.domain_num, cfg.per_domain_batch, cfg.margin,
             cfg.replicate_ref_quirks)
@@ -147,7 +157,7 @@ def make_train_step(cfg: StepConfig, *, device: str | torch.device = "cuda"):
     ``generator`` (a ``torch.Generator`` on ``device``).
     """
     dev = resolve_device(device)
-    shape_phases = cfg.whitening and cfg.shape_prior
+    shape_phases = cfg.distill and cfg.whitening and cfg.shape_prior
 
     def train_step(state: WTPSETrainState, batch: dict[str, Any],
                    generator: torch.Generator | None = None,

@@ -30,9 +30,13 @@ the augmentation and the step's N(0, 1) draws is re-seeded from ``(seed,
 epoch)``, so a run resumed at an epoch draws what the uninterrupted run drew
 (the JAX trainer's ``fold_in(run_key, step)`` property).
 
-Options whose slices are not ported raise ``NotImplementedError``
-(``ROADMAP.md``, Queue 1): data parallelism and the joint algorithm (bf16
-raises in ``ModelConfig``).
+``algorithm`` is ``WT_PSE`` or the joint variant
+(``Unet_nips2023_joint_shape_regularization``: :class:`JointShapeReg` nets,
+no distillation phases, its own predict, and the per-epoch loss-trace files
+of the reference's joint epoch). ``hparams['compute_dtype']`` may be
+``'bfloat16'`` for either (``models/layers.py``); ``run_meta.json`` records
+it. Data parallelism is not ported and raises ``NotImplementedError``
+(``ROADMAP.md``, Queue 1).
 """
 
 from __future__ import annotations
@@ -52,7 +56,8 @@ from wt_pse_tpu_torch.data.fundus import FundusDomain, encode_masks
 from wt_pse_tpu_torch.io.checkpoint import restore_ensemble, save_ensemble
 from wt_pse_tpu_torch.models.common import ModelConfig
 from wt_pse_tpu_torch.runtime import resolve_device
-from wt_pse_tpu_torch.train.eval import evaluate_domain, make_predict_fn
+from wt_pse_tpu_torch.config.hparams import ALGORITHMS, JOINT
+from wt_pse_tpu_torch.train.eval import evaluate_domain, make_predict_fn_for
 from wt_pse_tpu_torch.train.eval_device import evaluate_domain_device
 from wt_pse_tpu_torch.train.lr import epoch_lrs, reference_lr_kwargs, reference_lr_value
 from wt_pse_tpu_torch.train.state import WTPSETrainState, init_ensemble
@@ -95,8 +100,8 @@ def viz_forward(main_od: torch.nn.Module, main_oc: torch.nn.Module, batch: dict)
     mode with zero shape noise; the OC logits are masked by the OD prediction
     before any threshold (Trainer.py:873,944). Returns sample 0's ROI image,
     OC attention mask (zeros without one), OC target and OC logits, each
-    (C, H, W). The nets are left in eval mode; the step puts them back in
-    train mode."""
+    (C, H, W) and f32. The nets are left in eval mode; the step puts them
+    back in train mode."""
     image, t_od, t_oc = batch["image"], batch["target_od"], batch["target_oc"]
     main_od.eval()
     main_oc.eval()
@@ -105,10 +110,10 @@ def viz_forward(main_od: torch.nn.Module, main_oc: torch.nn.Module, batch: dict)
     od_pred = (torch.sigmoid(out_od) > 0.75).to(image.dtype)
     roi = (image + 1.0) * od_pred - 1.0
     out_oc, att_oc, _ = main_oc(roi, t_oc, roi, eps=eps)
-    out_oc = out_oc * od_pred
+    out_oc = out_oc.float() * od_pred
     if att_oc is None:
         att_oc = torch.zeros_like(out_oc)
-    return roi[0], att_oc[0], t_oc[0], out_oc[0]
+    return roi[0], att_oc[0].float(), t_oc[0], out_oc[0]
 
 
 def _not_ported(what: str):
@@ -157,8 +162,8 @@ class Trainer:
         self.device = resolve_device(device)
         if dp or dp_devices:
             raise _not_ported("data parallelism (dp / dp_devices)")
-        if algorithm != "WT_PSE":
-            raise _not_ported(f"algorithm {algorithm!r}")
+        if algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown algorithm {algorithm!r}; have {ALGORITHMS}")
         if train_viz_interval <= 0:  # "off" is train_visualization=False
             raise ValueError(f"train_viz_interval must be >= 1, got {train_viz_interval}")
         self.domain_num = len(train_domains)
@@ -201,15 +206,17 @@ class Trainer:
         self.lr_od, self.lr_od_shape = lr_od, lr_od_shape
         self.lr_oc, self.lr_oc_shape = lr_oc, lr_oc_shape
 
+        self.algorithm = algorithm
         self.cfg = ModelConfig.from_hparams(self.hparams)
         self.state: WTPSETrainState = init_ensemble(
             self.cfg, device=self.device, generator=torch.Generator().manual_seed(seed),
-            lr_od=lr_od, lr_od_shape=lr_od_shape, lr_oc=lr_oc, lr_oc_shape=lr_oc_shape)
+            lr_od=lr_od, lr_od_shape=lr_od_shape, lr_oc=lr_oc, lr_oc_shape=lr_oc_shape,
+            algorithm=algorithm)
         self.data = stack_domains(train_domains, self.device)
         self._batch_fn = make_device_batch_fn(self.per_domain_batch, device=self.device)
         self._train_step = make_train_step(
             StepConfig(self.hparams, self.domain_num, self.per_domain_batch,
-                       replicate_ref_quirks), device=self.device)
+                       replicate_ref_quirks, distill=algorithm != JOINT), device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._rollbacks = 0
 
@@ -335,8 +342,9 @@ class Trainer:
         path, ``device`` on the fast one) are appended to
         ``validation_seconds``; the engine that scored is
         ``scoring_backend``."""
-        predict = make_predict_fn(*(ns.net for ns in self.state.net_states()),
-                                  device=self.device)
+        predict = make_predict_fn_for(self.algorithm,
+                                      [ns.net for ns in self.state.net_states()],
+                                      device=self.device)
         if self.val_visualization:
             self._save_val_montage(predict)
         timings: dict[str, float] = {}
@@ -421,6 +429,17 @@ class Trainer:
             else:
                 lr_now, lr_shape_now = self.lr_od, self.lr_od_shape
             self.logger.scalars(epoch, dict(metrics, lr=lr_now, lr_shape=lr_shape_now))
+            if self.algorithm == JOINT:
+                # the loss-trace files of the reference's joint epoch
+                # (Trainer.py:706-720): it zeroes these accumulators and never
+                # adds to them there, so it appends 0.0; the joint step has
+                # no *_shape metrics, so .get gives the same
+                self.logger.loss_trace({
+                    "ii": metrics.get("loss_ins_wt_shape_ii", 0.0),
+                    "ij": metrics.get("loss_ins_wt_shape_ij", 0.0),
+                    "all_ins": metrics.get("loss_ins_wt_shape", 0.0),
+                    "domain": metrics.get("loss_dom_wt_shape", 0.0),
+                })
             self.logger.epoch_summary(
                 epoch, lr_now, metrics.get("loss_seg_oc", 0.0),
                 metrics.get("loss_kd_oc", 0.0), metrics.get("loss_ins_wt_oc", 0.0),
