@@ -88,7 +88,25 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    ``whitening=True`` (4 launches of each kernel a step); a small joint step
    and predict (whitening on, bf16) against the CPU; the eval CLI on the
    joint checkpoint (its metrics equal ``evaluate_domain`` on the reloaded
-   nets) and ``load_predictor``; epoch, validation and CLI times.
+   nets) and ``load_predictor``; epoch, validation and CLI times;
+10. data parallelism and the sweep (``parallel/``), each part in processes of
+   its own that this script starts and stops: (a) ``Trainer(dp=True)`` at
+   full width in one spawned rank of a world-1 NCCL process group, 3 epochs
+   of 4 steps and one (batch-sharded) validation, with the launch counts set
+   to 0 just before and read just after (8 of each f32 kernel a step),
+   finite metrics, one step's metrics within rtol 2e-3 of a ``dp=False``
+   trainer's on the same seed, and its epoch times beside phase 6's; (b) two
+   gloo ranks sharing the one card (NCCL refuses two ranks on one card): one
+   DP step at 256x256, global batch 12 = 3 x 4, shape prior and whitening on,
+   the draws injected, in f32 and in bf16, against rank 0's single-process
+   step on the global batch (``tests/test_parallel.py:227-236``'s bounds;
+   bf16 at class bf16), 8 launches of each kernel of the dtype a step on each
+   rank, every rank's state bitwise equal, and the host-staged gloo step time;
+   (c) ``python -m wt_pse_tpu_torch.cli.sweep`` with 2 jobs (target 4, OD
+   and OC) on a synthetic on-disk split of 4 domains written with PIL, to one
+   validation each: exit 0, ``sweep_results.json`` with both keys and the
+   summary. A rank on any card but the first cannot run here (one card), so
+   ``torch.cuda.set_device`` of another rank is not exercised.
 
 The card's name and power limit follow the build line. The line before the
 last is a JSON ``kernels`` record of four rows, the f32 and the bf16 variant
@@ -146,6 +164,9 @@ EARLIER_MS = {"covariance_gram_bf16": 0.0208, "covariance_dz_bf16": 0.0272}
 BF16_TOL = (2e-2, 1e-3)    # tolerance class bf16 (card against CPU, both in bf16)
 STEPS_BF16 = 8             # phase 8: full-width bf16 steps on one fixed batch
 JOINT = "Unet_nips2023_joint_shape_regularization"
+DP_EPOCHS = 3              # phase 10 (a): 3 epochs of 4 steps, then one validation
+DP_RANK_TIMEOUT_S = 420.0  # a phase 10 rank that hangs fails the run
+DP_STEP_HW = 256           # phase 10 (b): the image size of the 2-rank step
 
 
 def log(msg: str) -> None:
@@ -1075,6 +1096,237 @@ def joint_path(cc, dev, tmp: str, p6: dict) -> None:
         raise SystemExit("phase 9: the joint eval CLI or load_predictor check failed")
 
 
+def _dp_trainer_rank(rank: int, tmp: str) -> dict:
+    """Phase 10 (a), in a spawned rank of a world-1 NCCL group: a ``dp=False``
+    and a ``dp=True`` Trainer on phase 6's pools, one step of each from the
+    same state and draws, then the DP trainer's 3 epochs (launches counted)
+    and one validation."""
+    import copy
+
+    from wt_pse_tpu_torch.config import default_hparams
+    from wt_pse_tpu_torch.ops import covariance_cuda as cc
+    from wt_pse_tpu_torch.parallel.dp import rank_seed
+    from wt_pse_tpu_torch.runtime import resolve_device
+    from wt_pse_tpu_torch.train.trainer import Trainer
+
+    dev = resolve_device(f"cuda:{torch.cuda.current_device()}")
+    train, val = synthetic_pools()
+    kw = dict(batch_size=9, interval_validate=99, label="OD", seed=1, eval_batch_size=8,
+              val_visualization=False, device=dev, max_epoch=DP_EPOCHS)
+    trainers = {dp: Trainer(default_hparams("WT_PSE"), train, val, os.path.join(tmp, f"dp_{dp}"),
+                            dp=dp, **kw) for dp in (False, True)}
+    step = {}
+    for dp, t in trainers.items():
+        gen = torch.Generator(device=dev).manual_seed(rank_seed(7, t.mesh))
+        m = t._train_step(copy.deepcopy(t.state), t._batch_fn(t.data, gen), generator=gen)
+        step[dp] = {k: float(v) for k, v in m.items()}
+    t = trainers[True]
+    torch.cuda.synchronize()
+    zero_counts(cc)
+    t.train()
+    torch.cuda.synchronize()
+    launches = read_counts(cc)
+    val_out, t_val = timed(t.validate)
+    with open(os.path.join(t.out, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if "loss_seg" in line]
+    with open(os.path.join(t.out, "run_meta.json")) as f:
+        meta = json.load(f)
+    return {"step": step, "launches": launches, "steps": DP_EPOCHS * t.iter_per_epoch,
+            "epoch_seconds": t.epoch_seconds, "enqueue_seconds": t.enqueue_seconds,
+            "val": val_out, "val_seconds": t_val, "sharded": t._shard_eval,
+            "records": recs, "meta_dp": meta["dp"],
+            "backend": torch.distributed.get_backend(t.mesh.group)}
+
+
+def _dp_step_rank(rank: int, tmp: str) -> dict:
+    """Phase 10 (b), in one of two gloo ranks on the one card: for f32 and
+    bf16, one DP step at 256x256 on this rank's half of a global batch of 12
+    (3 domains x 4, shape prior and whitening on, the draws injected), its
+    launch counts, a digest of its state and a second step timed; rank 0 then
+    runs the single-process step on the global batch."""
+    import hashlib
+
+    from wt_pse_tpu_torch.config import default_hparams
+    from wt_pse_tpu_torch.models.common import ModelConfig
+    from wt_pse_tpu_torch.ops import covariance_cuda as cc
+    from wt_pse_tpu_torch.parallel.dp import make_dp_fused
+    from wt_pse_tpu_torch.parallel.mesh import data_mesh
+    from wt_pse_tpu_torch.runtime import resolve_device
+    from wt_pse_tpu_torch.train.state import init_ensemble
+    from wt_pse_tpu_torch.train.step import EPS_KEYS, StepConfig, make_train_step
+
+    dev = resolve_device("cuda:0")
+    mesh = data_mesh()
+    n_dom, pdb, hw = 3, 4, DP_STEP_HW
+    local = pdb // mesh.size
+    glob_batch = {k: torch.from_numpy(v).to(dev)
+                  for k, v in synthetic_batch(n_dom, pdb, hw, seed=0).items()}
+    r = np.random.RandomState(5)
+    glob_eps = {k: torch.from_numpy(r.randn(n_dom * pdb, 1, hw, hw).astype(np.float32)).to(dev)
+                for k in EPS_KEYS}
+    # this rank's rows: local of each domain, in the order the MMD gather
+    # re-interleaves them
+    rows = torch.tensor([d * pdb + rank * local + i for d in range(n_dom) for i in range(local)],
+                        device=dev)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        hp = dict(default_hparams("WT_PSE"), compute_dtype=dtype)
+        state = init_ensemble(ModelConfig.from_hparams(hp, bn_mesh=mesh), device=dev,
+                              generator=torch.Generator().manual_seed(2))
+        step = make_dp_fused([ns.net for ns in state.net_states()], hp, mesh, n_dom, pdb,
+                             device=dev)
+        batch = {k: v[rows] for k, v in glob_batch.items()}
+        eps = {k: v[rows] for k, v in glob_eps.items()}
+        torch.cuda.synchronize()
+        zero_counts(cc)
+        metrics = {k: float(v) for k, v in step.train_step(state, batch, eps=eps).items()}
+        torch.cuda.synchronize()
+        launches = read_counts(cc)
+        h = hashlib.sha256()
+        for ns in state.net_states():  # parameters and BatchNorm statistics (f32)
+            for name, t in ns.net.state_dict().items():
+                h.update(name.encode() + t.cpu().numpy().tobytes())
+        od_params = {k: v.detach().cpu().clone() for k, v in state.od.net.named_parameters()}
+        _, t_step = timed(lambda: step.train_step(state, batch, eps=eps))
+        res = {"metrics": metrics, "launches": launches, "digest": h.hexdigest(),
+               "step_seconds": t_step}
+        if rank == 0:
+            single = init_ensemble(ModelConfig.from_hparams(hp), device=dev,
+                                   generator=torch.Generator().manual_seed(2))
+            want = make_train_step(StepConfig(hp, n_dom, pdb), device=dev)(
+                single, glob_batch, eps=glob_eps)
+            res["single"] = {k: float(v) for k, v in want.items()}
+            diff = {k: (od_params[k] - v.detach().cpu()).abs()
+                    for k, v in single.od.net.named_parameters()}
+            flat = torch.cat([d.flatten() for d in diff.values()])
+            # the first parameter against tests/test_parallel.py:236's bound
+            # (rtol 1e-2, atol 5e-5): the largest error / bound
+            w = od_params["inc.conv1.weight"].abs()
+            res["od_param_diff"] = {
+                "max": float(flat.max()), "mean": float(flat.mean()),
+                "first_leaf_of_bound": float((diff["inc.conv1.weight"] / (5e-5 + 1e-2 * w)).max())}
+        out[dtype] = res
+    return out
+
+
+FUNDUS_PREFIX = {1: "gd", 2: "g", 3: "G", 4: "V"}  # a file-name prefix each site uses
+
+
+def write_sweep_split(root: str, seed: int = 21) -> None:
+    """Phase 10 (c)'s synthetic Fundus tree, with PIL: Domain1-3 ``train`` of
+    3 images and Domain4 ``test`` of 2, all 256x256, with 255/128/0 disc and
+    cup masks at seeded centres."""
+    from PIL import Image
+
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:256, 0:256]
+    for dom, phase, n in ((1, "train", 3), (2, "train", 3), (3, "train", 3), (4, "test", 2)):
+        d = os.path.join(root, f"Domain{dom}", phase, "ROIs")
+        for sub in ("image", "mask"):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        for i in range(n):
+            cy, cx = r.uniform(90, 166, 2)
+            d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+            mask = np.full((256, 256), 255, np.uint8)
+            mask[d2 < 45 ** 2] = 128
+            mask[d2 < 22 ** 2] = 0
+            img = np.clip(r.rand(256, 256, 3) * 120 + 40 + 25 * dom + 50 * (mask < 255)[..., None],
+                          0, 255).astype(np.uint8)
+            name = f"{FUNDUS_PREFIX[dom]}_{i}.png"  # the loader keys pools by prefix
+            Image.fromarray(img).save(os.path.join(d, "image", name))
+            Image.fromarray(mask).save(os.path.join(d, "mask", name))
+
+
+def dp_path(tmp: str, p6: dict) -> None:
+    """Phase 10: data parallelism and the sweep, each part in processes of its
+    own, started here and stopped before the next part."""
+    from wt_pse_tpu_torch.parallel.distributed import run_local_ranks
+
+    # (a) the DP trainer, world 1 over NCCL
+    t0 = time.perf_counter()
+    (a,) = run_local_ranks(_dp_trainer_rank, 1, f"file://{tmp}/rdzv_a", (tmp,),
+                           backend="nccl", timeout_s=DP_RANK_TIMEOUT_S)
+    wall_a = time.perf_counter() - t0
+    worst = max(abs(a["step"][True][k] - v) / (1e-5 + 2e-3 * abs(v))
+                for k, v in a["step"][False].items())
+    et = a["epoch_seconds"]
+    log(f"phase 10 (a) Trainer(dp=True), world 1 over {a['backend']}, 256x256, batch 9 = 3x3, "
+        f"f32, {DP_EPOCHS} epochs x {a['steps'] // DP_EPOCHS} steps: epochs " +
+        ", ".join(f"{t:.3f}" for t in et) + f" s (steady median {statistics.median(et[1:]):.3f} "
+        f"s) against phase 6's single-device epochs in this call " +
+        ", ".join(f"{t:.3f}" for t in p6["trainer"].epoch_seconds) + " s; host enqueue " +
+        ", ".join(f"{t:.3f}" for t in a["enqueue_seconds"]) + f" s; launches {a['launches']}; "
+        f"validation ({'batch-sharded' if a['sharded'] else 'unsharded'}) "
+        f"{a['val_seconds']:.3f} s: {json.dumps(a['val'])}; run_meta dp {json.dumps(a['meta_dp'])}; "
+        f"one step against dp=False, worst |error| / (1e-5 + 2e-3 |want|) {worst:.3f}; "
+        f"{wall_a:.1f} s with the rank's start")
+    expect_counts(a["launches"], 8 * a["steps"], 0, "phase 10 (a)")
+    bad = [r["step"] for r in a["records"]
+           if not all(math.isfinite(v) for k, v in r.items() if k != "step")]
+    if len(a["records"]) != DP_EPOCHS or bad or worst > 1.0:
+        raise SystemExit(f"phase 10 (a): {len(a['records'])} epoch records, non-finite at "
+                         f"{bad}, step against dp=False {worst:.3f} of rtol 2e-3")
+    if len(a["val"]) != 7 or not all(map(math.isfinite, a["val"].values())) or \
+            not a["meta_dp"]["enabled"] or not a["sharded"]:
+        raise SystemExit(f"phase 10 (a): validation {a['val']}, run_meta {a['meta_dp']}")
+
+    # (b) two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    b = run_local_ranks(_dp_step_rank, 2, f"file://{tmp}/rdzv_b", (tmp,), backend="gloo",
+                        timeout_s=DP_RANK_TIMEOUT_S)
+    wall_b = time.perf_counter() - t0
+    for dtype in ("float32", "bfloat16"):
+        r0, r1 = b[0][dtype], b[1][dtype]
+        got, want = r0["metrics"], r0["single"]
+        if dtype == "float32":  # tests/test_parallel.py:227-236
+            bounds = {"loss_seg": (2e-3, 0.0), "loss_ins_wt": (5e-3, 0.0),
+                      "loss_dom_wt": (5e-3, 1e-5)}
+        else:
+            bounds = dict.fromkeys(("loss_seg", "loss_ins_wt", "loss_dom_wt"), BF16_TOL)
+        errs = {k: abs(got[k] - want[k]) / (atol + rtol * abs(want[k]))
+                for k, (rtol, atol) in bounds.items()}
+        n_f32, n_bf16 = (8, 0) if dtype == "float32" else (0, 8)
+        log(f"phase 10 (b) {dtype}: 2 gloo ranks on one card, one DP step at 256x256, global "
+            f"batch 12 = 3x4: metrics {json.dumps(got)}; single process on the global batch "
+            f"{json.dumps(want)}; error / bound {json.dumps(errs)}; OD parameters against the "
+            f"single process {json.dumps(r0['od_param_diff'])}; launches rank 0 "
+            f"{r0['launches']}, rank 1 {r1['launches']}; ranks' states bitwise equal: "
+            f"{r0['digest'] == r1['digest']}; a second step {r0['step_seconds'] * 1e3:.1f} / "
+            f"{r1['step_seconds'] * 1e3:.1f} ms (host-staged gloo over one shared card, not an "
+            f"NCCL figure)")
+        for rank, res in enumerate((r0, r1)):
+            expect_counts(res["launches"], n_f32, n_bf16, f"phase 10 (b) {dtype} rank {rank}")
+        if max(errs.values()) > 1.0 or r0["digest"] != r1["digest"] or \
+                r0["od_param_diff"]["max"] > 2.2 * 5e-4:
+            raise SystemExit(f"phase 10 (b) {dtype}: the DP step disagrees with the single "
+                             "process, or the ranks' states differ")
+    log(f"phase 10 (b): {wall_b:.1f} s with the ranks' start")
+
+    # (c) the sweep CLI, 2 jobs on the card
+    root, out = os.path.join(tmp, "sweep_data"), os.path.join(tmp, "sweep")
+    write_sweep_split(root)
+    cmd = [sys.executable, "-m", "wt_pse_tpu_torch.cli.sweep", "--data-dir", root,
+           "--targets", "4", "--labels", "OD", "OC", "--batch-size", "9", "--max-epoch", "4",
+           "--stop-epoch", "4", "--interval-validate", "4", "--running_times", "1",
+           "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_RANK_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_c = time.perf_counter() - t0
+    summary = proc.stdout[proc.stdout.find("sweep summary"):].strip().splitlines()
+    results = {}
+    if os.path.exists(os.path.join(out, "sweep_results.json")):
+        with open(os.path.join(out, "sweep_results.json")) as f:
+            results = json.load(f)
+    log(f"phase 10 (c) the sweep CLI (target 4, OD and OC, 4 epochs of 1 step, a validation "
+        f"each): exit {proc.returncode} in {wall_c:.1f} s; sweep_results.json {json.dumps(results)}"
+        f"; summary {summary}")
+    if proc.returncode != 0 or set(results) != {"target4_OD", "target4_OC"} or \
+            len(summary) != 3:
+        raise SystemExit(f"phase 10 (c): the sweep CLI failed:\n{proc.stdout[-4000:]}\n"
+                         f"{proc.stderr[-4000:]}")
+
+
 def time_in_turns(fns, flush, iters: int = 30) -> list[float]:
     """Median ms of one call of each of ``fns``, with ``flush()`` (which evicts
     the L2) before every call, the functions taken in turns in one loop."""
@@ -1235,6 +1487,7 @@ def main() -> int:
         eval_path(cc, dev, tmp, p6)
         bf16_launches = bf16_path(cc, dev, tmp, f32_step_ms, p6)
         joint_path(cc, dev, tmp, p6)
+        dp_path(tmp, p6)
     for row in rows:  # the counts of the trainers' runs: f32 phase 6, bf16 phase 8
         row["launches"] = (bf16_launches if row["name"].endswith("_bf16")
                            else p6["launches"])[row["name"]]

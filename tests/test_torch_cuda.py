@@ -18,7 +18,10 @@ augmentation with injected draws against the CPU (images at ``f32_reduce``,
 masks exact); one Trainer epoch and a validation on the card; the device
 post-processing on the card bitwise equal to the CPU, ``device_metrics`` at
 ``f32_reduce`` (Dice exact), the device upsample within ``f32_reduce`` of the
-f64 host one, and a Trainer epoch with fast validation and the montage.
+f64 host one, and a Trainer epoch with fast validation and the montage;
+sync BN over a mesh of one process on the card against the CPU at class
+``conv``, and the DP step over a world-1 NCCL process group within rtol 2e-3
+of the plain step.
 """
 
 import numpy as np
@@ -359,3 +362,71 @@ def test_fast_validation_and_the_montage_on_the_card(cuda, tmp_path):
     assert trainer.scoring_backend == "device"
     assert len(out) == 7 and all(np.isfinite(v) for v in out.values())
     assert len(list((tmp_path / "run" / "images").glob("train_*.png"))) == 4 * trainer.iter_per_epoch
+
+
+def test_sync_bn_on_the_card_matches_the_cpu_at_world_one(cuda):
+    """Sync BN over a mesh of one process (its own formula, no collective) on
+    the card against the CPU, at class conv: output, input gradient and the
+    running statistics."""
+    from wt_pse_tpu_torch.models.layers import BatchNorm2d
+    from wt_pse_tpu_torch.parallel.mesh import data_mesh
+
+    r = np.random.RandomState(13)
+    x = torch.from_numpy((r.randn(4, 16, 32, 32) * 2 + 0.5).astype(np.float32))
+    w = torch.from_numpy(r.randn(4, 16, 32, 32).astype(np.float32))
+    out = []
+    for dev in ("cpu", cuda):
+        bn = BatchNorm2d(16).to(dev)
+        bn.mesh = data_mesh()
+        xd = x.clone().to(dev).requires_grad_()  # a leaf of its own on each device
+        y = bn(xd)
+        (y * w.to(dev)).sum().backward()
+        out.append([t.detach().cpu() for t in (y, xd.grad, bn.running_mean, bn.running_var)])
+    for name, a, b in zip(("output", "grad", "running_mean", "running_var"), out[1], out[0]):
+        bound = 1e-5 + 5e-4 * float(b.abs().max())
+        assert float((a - b).abs().max()) <= bound, name
+
+
+def test_dp_step_over_a_world_one_nccl_mesh_matches_the_plain_step(cuda, tmp_path):
+    """A world-1 NCCL process group: the DP step (sync BN, gradient mean,
+    pos_weight sum and metric mean all through NCCL) launches 8 of each
+    kernel and its metrics are within rtol 2e-3 of the plain step's."""
+    import torch.distributed as dist
+
+    from wt_pse_tpu_torch.parallel.distributed import initialize_multihost
+    from wt_pse_tpu_torch.parallel.dp import make_dp_fused
+    from wt_pse_tpu_torch.parallel.mesh import data_mesh
+
+    hp = default_hparams("WT_PSE")
+    b, hw = 3, 32
+    r = np.random.RandomState(14)
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    od = ((yy - 16) ** 2 + (xx - 16) ** 2 < 100).astype(np.float32)
+    oc = ((yy - 16) ** 2 + (xx - 16) ** 2 < 36).astype(np.float32)
+    batch = {"image": torch.from_numpy(r.rand(b, 3, hw, hw).astype(np.float32) * 2 - 1).to(cuda),
+             "target_od": torch.from_numpy(np.tile(od[None, None], (b, 1, 1, 1))).to(cuda),
+             "target_oc": torch.from_numpy(np.tile(oc[None, None], (b, 1, 1, 1))).to(cuda)}
+    eps = {k: torch.from_numpy(r.randn(b, 1, hw, hw).astype(np.float32)).to(cuda)
+           for k in EPS_KEYS}
+    assert initialize_multihost(f"file://{tmp_path}/rdzv", 1, 0, cuda.index or 0, "nccl", 60)
+    try:
+        mesh = data_mesh()
+        assert mesh.size == 1 and mesh.group is not None
+        dp_state = init_ensemble(ModelConfig.from_hparams(hp, bn_mesh=mesh), device=cuda,
+                                 generator=torch.Generator().manual_seed(3))
+        step = make_dp_fused([ns.net for ns in dp_state.net_states()], hp, mesh, 3, 1,
+                             device=cuda)
+        f0, b0 = cc.covariance_forward.launches, cc.covariance_backward.launches
+        got = step.train_step(dp_state, batch, eps=eps)
+        torch.cuda.synchronize()
+        assert (cc.covariance_forward.launches - f0, cc.covariance_backward.launches - b0) == \
+            (8, 8)
+    finally:
+        dist.destroy_process_group()
+    state = init_ensemble(ModelConfig.from_hparams(hp), device=cuda,
+                          generator=torch.Generator().manual_seed(3))
+    want = make_train_step(StepConfig(hp, 3, 1), device=cuda)(state, batch, eps=eps)
+    for k, v in want.items():
+        assert np.isfinite(float(got[k])), k
+        if not k.startswith(("loss_kd", "train_dice")):  # as the step test above
+            np.testing.assert_allclose(float(got[k]), float(v), rtol=2e-3, atol=1e-5, err_msg=k)

@@ -14,6 +14,7 @@ import torch
 
 import wt_pse_tpu_torch
 from wt_pse_tpu_torch import api
+from wt_pse_tpu_torch.cli import sweep as cli_sweep
 from wt_pse_tpu_torch.cli import test_visualization as cli_eval
 from wt_pse_tpu_torch.cli import train as cli_train
 from wt_pse_tpu_torch.config import JOINT, default_hparams
@@ -46,7 +47,10 @@ def test_importing_every_module_leaves_jax_out():
     new = {"wt_pse_tpu_torch.api", "wt_pse_tpu_torch.cli.test_visualization",
            "wt_pse_tpu_torch.native", "wt_pse_tpu_torch.ops.losses",
            "wt_pse_tpu_torch.ops.postprocess_device", "wt_pse_tpu_torch.train.eval_device",
-           "wt_pse_tpu_torch.models.joint"}
+           "wt_pse_tpu_torch.models.joint", "wt_pse_tpu_torch.cli.sweep",
+           "wt_pse_tpu_torch.parallel.collectives", "wt_pse_tpu_torch.parallel.distributed",
+           "wt_pse_tpu_torch.parallel.dp", "wt_pse_tpu_torch.parallel.mesh",
+           "wt_pse_tpu_torch.parallel.spatial", "wt_pse_tpu_torch.parallel.sweep"}
     assert "wt_pse_tpu_torch.ops.covariance_cuda" in mods and new <= set(mods)
     assert len(mods) >= 40
     code = ("import sys, importlib\n"
@@ -106,6 +110,8 @@ ENTRY_POINTS = {
     "Trainer": lambda: Trainer(default_hparams("WT_PSE"), [], None, "unused"),
     "cli.train.main": lambda: cli_train.main(["--running_times", "1", "--out", "unused"]),
     "cli.test_visualization.main": lambda: cli_eval.main(["--model-file", "unused"]),
+    "cli.sweep.main": lambda: cli_sweep.main(
+        *cli_sweep.build_parser().parse_known_args(["--out", "unused"])),
     "load_predictor": lambda: api.load_predictor("unused"),
 }
 

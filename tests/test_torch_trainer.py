@@ -184,16 +184,16 @@ def test_resume_after_epoch_3_continues_bitwise(runs):
 def test_unsupported_configurations_raise(tmp_path, bad):
     """fast_validation and train_visualization are ported (tests/
     test_torch_eval_device.py, tests/test_torch_train_montage.py), and so are
-    bf16 and the joint algorithm (tests/test_torch_bf16.py,
-    tests/test_torch_joint*.py)."""
+    bf16, the joint algorithm (tests/test_torch_bf16.py,
+    tests/test_torch_joint*.py) and data parallelism (tests/test_torch_dp*.py):
+    an explicit ``dp`` whose mesh does not divide the per-domain batch (3)
+    raises."""
     dom = FundusDomain(images=np.zeros((2, SIZE, SIZE, 3), np.uint8),
                        labels=np.full((2, SIZE, SIZE), 255, np.uint8))
     kw = {"label_none": dict(label=None), "batch_below_domains": dict(batch_size=2),
-          "dp": dict(dp=True),
+          "dp": dict(dp=True, dp_devices=2),
           "train_viz_interval": dict(train_visualization=True, train_viz_interval=0)}[bad]
-    err = (ValueError if bad in ("label_none", "batch_below_domains", "train_viz_interval")
-           else NotImplementedError)
     kw.setdefault("hparams", default_hparams("WT_PSE"))
-    with pytest.raises(err, match=None if err is ValueError else "ROADMAP.md"):
+    with pytest.raises(ValueError, match="divisible" if bad == "dp" else None):
         Trainer(train_domains=[dom] * 3, val_domain=dom, out_dir=str(tmp_path / "x"),
                 device="cpu", **kw)

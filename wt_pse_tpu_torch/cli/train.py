@@ -8,9 +8,17 @@ It runs on the card (``-g`` picks its index) unless ``--device cpu`` is given,
 trains ``--running_times`` times and prints the mean±std of the 6 best
 metrics (train.py:174-175). ``--algorithm`` is ``WT_PSE`` (the default) or
 ``Unet_nips2023_joint_shape_regularization``; the hparam leftover
-``--compute_dtype bfloat16`` trains in bf16 mixed precision. Flags of slices
-not ported yet (``--dp``, ``--dp-devices``) are accepted and make the Trainer
-raise ``NotImplementedError``.
+``--compute_dtype bfloat16`` trains in bf16 mixed precision.
+
+Data parallelism: start one process per card with torchrun, which sets the
+process group's environment (``parallel/distributed.py``); each process
+trains on the card ``LOCAL_RANK`` and rank 0 writes the run directory:
+
+    torchrun --nproc-per-node 4 -m wt_pse_tpu_torch.cli.train --dp \
+        --batch-size 12 --datasetTrain 1 2 4 --datasetTest 3 --label OD ...
+
+Under torchrun ``--dp`` is on by default (auto) when the per-domain batch
+divides over more than one rank; ``--no-dp`` trains one device.
 """
 
 from __future__ import annotations
@@ -20,9 +28,11 @@ import os
 from datetime import date
 
 import numpy as np
+import torch
 
 from wt_pse_tpu_torch.config import default_hparams, load_config
 from wt_pse_tpu_torch.data.fundus import load_fundus, load_train_domains
+from wt_pse_tpu_torch.parallel.distributed import initialize_multihost, rank_and_world
 from wt_pse_tpu_torch.runtime import resolve_device
 from wt_pse_tpu_torch.train.trainer import Trainer
 from wt_pse_tpu_torch.utils.seed import seed_initialization
@@ -97,11 +107,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="roll back to the last finite epoch instead of raising on a "
                         "non-finite loss")
     p.add_argument("--dp", dest="dp", action="store_true", default=None,
-                   help="data parallelism (not ported yet: raises)")
+                   help="force data parallelism over every rank torchrun started "
+                        "(one process per card; sync-BN, gradient mean and MMD "
+                        "all-gather over the process group). Default: auto - enabled "
+                        "whenever the process group has more than one rank; note "
+                        "auto-DP changes the per-seed sampling stream against a "
+                        "single-card run (use --no-dp to reproduce single-device "
+                        "numerics) [addition over the reference]")
     p.add_argument("--no-dp", dest="dp", action="store_false",
-                   help="train on one device (the port always does)")
+                   help="force single-device training even under torchrun")
     p.add_argument("--dp-devices", type=int, default=None,
-                   help="cap of the data-parallel mesh (not ported yet: raises)")
+                   help="cap the data-parallel mesh at N ranks (default: all of them)")
     p.add_argument("--compile-cache", default="",
                    help="accepted for flag parity and ignored: the port compiles "
                         "nothing ahead of time")
@@ -150,7 +166,13 @@ def main(args=None, left_argv=None):
         args, extra = parser.parse_known_args([str(a) for a in args])
         left_argv = list(left_argv or []) + extra
     left_argv, args.configs = _repair_left_argv(list(left_argv or []), list(args.configs))
-    device = resolve_device(f"cuda:{args.gpu}" if args.device == "cuda" else "cpu")
+    # under torchrun: join the process group; this rank trains on the card
+    # LOCAL_RANK, which initialize_multihost made current
+    multi = initialize_multihost(backend=None if args.device == "cuda" else "gloo")
+    gpu = (f"cuda:{torch.cuda.current_device()}" if multi and torch.cuda.is_available()
+           else f"cuda:{args.gpu}")
+    device = resolve_device(gpu if args.device == "cuda" else "cpu")
+    is_main = rank_and_world()[0] == 0
     result = {k: [] for k in ("DSC_OC", "HD_OC", "ASD_OC", "DSC_OD", "HD_OD", "ASD_OD")}
     out_root = args.out or os.path.join(
         "runs", f"Unet2D_{args.label}_{date.today()}_target{args.datasetTest[0]}")
@@ -163,7 +185,7 @@ def main(args=None, left_argv=None):
 
         run_seed = args.seed if args.identical_reruns else args.seed + run_idx
         seed_initialization(run_seed)
-        if run_idx == 0:
+        if run_idx == 0 and is_main:  # one writer of the shared run directory
             from wt_pse_tpu_torch.utils.snapshot import save_code
 
             save_code(out_root, hparams)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import tempfile
 from dataclasses import dataclass, field
 from glob import glob
 
@@ -140,7 +141,12 @@ def load_fundus(
             payload["labels_ragged"] = np.array(labels_out, dtype=object)
         try:
             os.makedirs(os.path.dirname(cache_path), exist_ok=True)
-            np.savez_compressed(cache_path, **payload)
+            # written beside its name and moved there: ranks or sweep jobs
+            # that decode the same split at once never read half a file
+            with tempfile.NamedTemporaryFile(dir=os.path.dirname(cache_path),
+                                             suffix=".tmp.npz", delete=False) as f:
+                np.savez_compressed(f, **payload)
+            os.replace(f.name, cache_path)
         except OSError:
             pass  # a read-only dataset directory: the cache is best-effort
     return FundusDomain(images=images_arr, labels=labels_out, names=names)

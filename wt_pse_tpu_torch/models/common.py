@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from wt_pse_tpu_torch.config.hparams import COMPUTE_DTYPES
-from wt_pse_tpu_torch.models.layers import init_like_flax_
+from wt_pse_tpu_torch.models.layers import BatchNorm2d, init_like_flax_
 from wt_pse_tpu_torch.runtime import resolve_device
 
 
@@ -30,6 +30,10 @@ class ModelConfig:
     # master weights, f32 BatchNorm statistics and losses (hparam
     # `compute_dtype`; the policy is in models/layers.py)
     compute_dtype: str | None = None
+    # the data mesh whose ranks the BatchNorm layers synchronise over (sync
+    # BN; JAX: `bn_axis_name`), or None: set only by data-parallel training
+    # (parallel/dp.py)
+    bn_mesh: object | None = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def dtype(self) -> torch.dtype | None:
@@ -37,8 +41,8 @@ class ModelConfig:
         return None if self.compute_dtype is None else getattr(torch, self.compute_dtype)
 
     @classmethod
-    def from_hparams(cls, hparams: dict, n_channels: int = 3,
-                     n_classes: int = 1) -> "ModelConfig":
+    def from_hparams(cls, hparams: dict, n_channels: int = 3, n_classes: int = 1,
+                     bn_mesh=None) -> "ModelConfig":
         dtype = hparams.get("compute_dtype", None)
         if dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype={dtype!r}: the port takes one of "
@@ -52,16 +56,22 @@ class ModelConfig:
             shape_attention_coeffient=float(hparams.get("shape_attention_coeffient", 0.3)),
             whitening=bool(hparams.get("whitening", True)),
             compute_dtype=None if dtype in (None, "float32") else dtype,
+            bn_mesh=bn_mesh,
         )
 
 
 def place(module: nn.Module, device: str | torch.device,
-          generator: torch.Generator | None) -> None:
+          generator: torch.Generator | None, bn_mesh=None) -> None:
     """Initialise a top-level net as Flax would (from ``generator``, or from
-    a generator seeded with 0) and move it to ``device``."""
+    a generator seeded with 0), hand its BatchNorm layers ``bn_mesh`` (sync
+    BN under data parallelism; None: plain BatchNorm) and move it to
+    ``device``."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_like_flax_(module, generator)
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.mesh = bn_mesh
     module.to(resolve_device(device))
 
 

@@ -57,7 +57,7 @@ class JointShapeReg(nn.Module):
             self.prior_dist = ShapeStudent(cfg, device="cpu", generator=generator,
                                            own_wt=False)
         seg_heads(self, cfg)
-        place(self, device, generator)
+        place(self, device, generator, cfg.bn_mesh)
 
     def embed(self, inputs: torch.Tensor) -> torch.Tensor:
         return self.mu(unet_run(self, self.inc(inputs)))

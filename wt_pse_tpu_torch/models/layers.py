@@ -9,7 +9,10 @@ DoubleConvWT children ``double_conv.{0,2}``, and the 1x1 heads are
 BatchNorm is ``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1, unbiased variance in
 the running estimate) and the 2x upsample is ``F.interpolate(bilinear,
 align_corners=False)`` — the reference's own ops, which the JAX package
-re-implements for parity.
+re-implements for parity. Under data parallelism the BatchNorm layers hold
+the mesh and synchronise their training statistics across its ranks
+(:class:`BatchNorm2d`, JAX's ``BatchNorm(axis_name=...)``); without one they
+are ``nn.BatchNorm2d`` itself.
 
 Parameters are initialised the way the JAX package's Flax modules initialise
 them (:func:`init_like_flax_`), drawn from an explicit ``torch.Generator``.
@@ -48,6 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wt_pse_tpu_torch.parallel.collectives import all_reduce_sum
+
 # flax.linen.initializers.lecun_normal: truncated normal on [-2, 2] standard
 # deviations, rescaled by this constant so the variance is 1/fan_in
 _TRUNC_STD = 0.87962566103423978
@@ -69,6 +74,46 @@ class Conv2d(nn.Conv2d):
             return super().forward(x)
         return (F.conv2d(x.to(dt), self.weight.to(dt), None, 1, self.padding)
                 + self.bias.to(dt)[:, None, None])
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with sync BN: in training, with a ``mesh`` (set by
+    :func:`models.common.place` from ``ModelConfig.bn_mesh``), the batch
+    statistics are those of the ranks' batches together, as
+    ``wt_pse_tpu/models/layers.py:68-100`` computes them under an
+    ``axis_name``:
+
+    - the mean and the mean of squares, in at least f32, all-reduced and
+      divided by the mesh size (one all-reduce, differentiable, so the
+      gradient of every rank's loss reaches every rank's input);
+    - ``var = max(mean2 - mean², 0)`` normalises;
+    - the running statistics take the unbiased variance at the global count
+      ``n * size``, written back in their own dtype.
+
+    Without a mesh, or in eval mode, it is ``nn.BatchNorm2d.forward`` itself,
+    and its ``state_dict`` is ``nn.BatchNorm2d``'s either way. ``torch.nn.
+    SyncBatchNorm`` is not used: it takes no CPU tensor and all-gathers,
+    which gloo does not do for CUDA tensors."""
+
+    mesh = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None or not self.training:
+            return super().forward(x)
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        stats = torch.cat([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))])
+        mean, mean2 = (all_reduce_sum(stats, self.mesh) / self.mesh.size).split(c)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            n = x.numel() // c * self.mesh.size
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var * (n / max(n - 1, 1)))
+            self.num_batches_tracked.add_(1)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        shape = (1, c, 1, 1)
+        return ((xf - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
 def conv3x3(cin: int, cout: int, dtype: torch.dtype | None = None) -> Conv2d:
@@ -124,9 +169,9 @@ class ConvD(nn.Module):
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.first = first
-        self.conv1, self.bn1 = conv3x3(cin, planes, dtype), nn.BatchNorm2d(planes)
-        self.conv2, self.bn2 = conv3x3(planes, planes, dtype), nn.BatchNorm2d(planes)
-        self.conv3, self.bn3 = conv3x3(planes, planes, dtype), nn.BatchNorm2d(planes)
+        self.conv1, self.bn1 = conv3x3(cin, planes, dtype), BatchNorm2d(planes)
+        self.conv2, self.bn2 = conv3x3(planes, planes, dtype), BatchNorm2d(planes)
+        self.conv3, self.bn3 = conv3x3(planes, planes, dtype), BatchNorm2d(planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.first:
@@ -145,9 +190,9 @@ class ConvU(nn.Module):
         super().__init__()
         self.first = first
         if not first:
-            self.conv1, self.bn1 = conv3x3(2 * planes, planes, dtype), nn.BatchNorm2d(planes)
-        self.conv2, self.bn2 = conv1x1(planes, planes // 2, dtype), nn.BatchNorm2d(planes // 2)
-        self.conv3, self.bn3 = conv3x3(planes, planes, dtype), nn.BatchNorm2d(planes)
+            self.conv1, self.bn1 = conv3x3(2 * planes, planes, dtype), BatchNorm2d(planes)
+        self.conv2, self.bn2 = conv1x1(planes, planes // 2, dtype), BatchNorm2d(planes // 2)
+        self.conv3, self.bn3 = conv3x3(planes, planes, dtype), BatchNorm2d(planes)
 
     def forward(self, x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
         if not self.first:
@@ -163,8 +208,8 @@ class DoubleConv(nn.Module):
     def __init__(self, cin: int, features: int, dtype: torch.dtype | None = None):
         super().__init__()
         self.double_conv = nn.Sequential(
-            conv3x3(cin, features, dtype), nn.BatchNorm2d(features), nn.ReLU(),
-            conv3x3(features, features, dtype), nn.BatchNorm2d(features), nn.ReLU(),
+            conv3x3(cin, features, dtype), BatchNorm2d(features), nn.ReLU(),
+            conv3x3(features, features, dtype), BatchNorm2d(features), nn.ReLU(),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -57,7 +57,7 @@ class TeacherShapePrior(nn.Module):
         else:
             self.inc = DoubleConv(1 + cfg.n_channels, n, dt)
         _trunk(self, n, dt)
-        place(self, device, generator)
+        place(self, device, generator, cfg.bn_mesh)
 
     def extract(self, inputs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.cfg.whitening:
@@ -97,7 +97,7 @@ class ShapeStudent(nn.Module):
         if not cfg.whitening:
             self.inc = DoubleConv(cfg.n_channels, n, dt)
         _trunk(self, n, dt)
-        place(self, device, generator)
+        place(self, device, generator, cfg.bn_mesh)
 
     def extract(self, inputs: torch.Tensor) -> torch.Tensor:
         x1 = inputs if self.cfg.whitening else self.inc(inputs)

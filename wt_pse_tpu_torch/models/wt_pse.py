@@ -61,7 +61,7 @@ class WTPSE(nn.Module):
             # placed on the CPU here; the whole net is initialised and moved below
             self.prior_dist = TeacherShapePrior(cfg, device="cpu", generator=generator)
         seg_heads(self, cfg)
-        place(self, device, generator)
+        place(self, device, generator, cfg.bn_mesh)
 
     def embed(self, inputs: torch.Tensor) -> torch.Tensor:
         """U-Net trunk -> 8-dim embedding (algorithms.py:1218-1227)."""

@@ -12,6 +12,14 @@
   per-domain blocks of the (B, C(C-1)/2) upper-triangle vectors; the batch is
   laid out domain-contiguously.
 
+Under data parallelism (``mesh`` of more than one rank) each rank holds
+``domain_num * per_domain_batch`` samples, domain-contiguous. The instance
+terms stay local: with the gradient mean they equal the global batch's. The
+upper-triangle vectors are all-gathered and re-interleaved so that each
+global domain block is contiguous before the MMD, which every rank then
+computes on the whole set (``wt_pse_tpu/ops/whitening.py:150-155``). The
+covariance kernels run unchanged on each rank's own maps.
+
 Reference quirks, on by default and switched off by ``replicate_ref_quirks=False``:
 
 1. main net: the sum over the first 2 of 3 DeepWT maps is divided by 3
@@ -25,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from wt_pse_tpu_torch.ops.covariance_cuda import Covariance
+from wt_pse_tpu_torch.parallel.collectives import all_gather_rows
 
 
 def feature_covariance(z: torch.Tensor) -> torch.Tensor:
@@ -84,16 +93,26 @@ def domain_mmd(vectors: torch.Tensor, domain_num: int,
 
 
 def whitening_loss_single(z: torch.Tensor, domain_num: int, per_domain_batch: int,
-                          margin: float = 0.0):
-    """One feature map -> (off_term, diag_term, domain_term)."""
+                          margin: float = 0.0, mesh=None):
+    """One feature map -> (off_term, diag_term, domain_term). ``mesh``: the
+    data mesh whose ranks' vectors the MMD takes (module docstring)."""
     cov = feature_covariance(z)
     off_term, diag_term = instance_whitening_terms(cov, margin)
-    dom = domain_mmd(upper_triangle_vectors(cov), domain_num, per_domain_batch)
+    vec = upper_triangle_vectors(cov)
+    pdb = per_domain_batch
+    if mesh is not None and mesh.size > 1:
+        g = all_gather_rows(vec, mesh)  # (size, D * pdb, F)
+        f = g.shape[-1]
+        g = g.reshape(mesh.size, domain_num, pdb, f).transpose(0, 1)
+        vec = g.reshape(domain_num * mesh.size * pdb, f)
+        pdb = mesh.size * pdb
+    dom = domain_mmd(vec, domain_num, pdb)
     return off_term, diag_term, dom
 
 
 def main_whitening_loss(wt_feats, domain_num: int, per_domain_batch: int,
-                        margin: float = 0.0, replicate_ref_quirks: bool = True):
+                        margin: float = 0.0, replicate_ref_quirks: bool = True,
+                        mesh=None):
     """Main-net whitening loss over the DeepWT list. Returns (instance, domain).
     Sums maps 0..len-2; divides by len (quirk 1) or by the number summed."""
     num = len(wt_feats)
@@ -101,7 +120,7 @@ def main_whitening_loss(wt_feats, domain_num: int, per_domain_batch: int,
     dom = 0.0
     for z in wt_feats[: num - 1]:
         off_t, diag_t, dom_t = whitening_loss_single(z, domain_num, per_domain_batch,
-                                                     margin)
+                                                     margin, mesh)
         inst = inst + off_t + diag_t
         dom = dom + dom_t
     denom = num if replicate_ref_quirks else max(num - 1, 1)
@@ -109,7 +128,8 @@ def main_whitening_loss(wt_feats, domain_num: int, per_domain_batch: int,
 
 
 def student_whitening_loss(wt_feats, domain_num: int, per_domain_batch: int,
-                           margin: float = 0.0, replicate_ref_quirks: bool = True):
+                           margin: float = 0.0, replicate_ref_quirks: bool = True,
+                           mesh=None):
     """Student-net whitening loss. Returns (inst_total, inst_offdiag,
     inst_diag, domain) in the reference's return order; ``inst_diag`` carries
     quirk 2 by default."""
@@ -117,7 +137,7 @@ def student_whitening_loss(wt_feats, domain_num: int, per_domain_batch: int,
     offs, diags, doms = [], [], []
     for z in wt_feats[: num - 1]:
         off_t, diag_t, dom_t = whitening_loss_single(z, domain_num, per_domain_batch,
-                                                     margin)
+                                                     margin, mesh)
         offs.append(off_t)
         diags.append(diag_t)
         doms.append(dom_t)

@@ -35,6 +35,17 @@ batch run the whole step, losses included, in f64; an f32 or bf16 batch is
 taken as f32, as before. Nothing pins f32 by hand: the logits, ``mu`` and
 the zero whitening terms are widened to at least f32.
 
+Data parallelism (``StepConfig(..., mesh=...)``, built by ``parallel/dp.py``):
+each rank runs this step on its own domain-contiguous share of the global
+batch, with nets whose BatchNorm is synchronised over the mesh. Each phase
+replaces its net's gradients by their mean over the ranks before
+``opt.step()`` (one all-reduce, ``step.py:135,182``); ``pos_weight``'s
+numerator and denominator are summed over the ranks before the division
+(``step.py:244-248``); the whitening losses gather their MMD vectors. Every
+branch that decides whether a collective runs (``wt_feats is None``, the
+shape phases, ``multi-turn``) depends on the configuration alone, so every
+rank reaches every collective in the same order.
+
 Metrics stay device tensors (f32; f64 in an f64 step): the step makes no
 ``.item()`` call. Tensors are NCHW; the batch is domain-contiguous (domain d
 holds rows ``[d*per_domain_batch, (d+1)*per_domain_batch)``), which the MMD
@@ -49,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from wt_pse_tpu_torch.ops.whitening import main_whitening_loss, student_whitening_loss
+from wt_pse_tpu_torch.parallel.collectives import all_reduce_sum, mean_grads_
 from wt_pse_tpu_torch.runtime import resolve_device
 from wt_pse_tpu_torch.train.state import NetState, WTPSETrainState
 
@@ -75,10 +87,13 @@ def bce_logits_pos_weight(logits: torch.Tensor, targets: torch.Tensor,
 class StepConfig:
     """Python-level configuration of the step (``step.py:53-103``). The hparams
     ``use_pallas_whitening`` and ``space_to_depth`` are accepted and ignored.
-    ``distill=False`` (the joint variant) skips the shape phases 2 and 4."""
+    ``distill=False`` (the joint variant) skips the shape phases 2 and 4.
+    ``mesh``: the data mesh of a data-parallel step (JAX: ``axis_name`` and
+    ``axis_size``), whose size it carries; ``per_domain_batch`` is then this
+    rank's share."""
 
     def __init__(self, hparams: dict, domain_num: int, per_domain_batch: int,
-                 replicate_ref_quirks: bool = True, distill: bool = True):
+                 replicate_ref_quirks: bool = True, distill: bool = True, mesh=None):
         self.whitening = bool(hparams.get("whitening", True))
         self.shape_prior = bool(hparams.get("shape_prior", True))
         self.distill = distill
@@ -89,6 +104,7 @@ class StepConfig:
         self.domain_num = domain_num
         self.per_domain_batch = per_domain_batch
         self.replicate_ref_quirks = replicate_ref_quirks
+        self.mesh = mesh
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -106,11 +122,13 @@ def _seg_phase(ns: NetState, image, target, wt_input, seg_loss_fn, cfg: StepConf
     loss_seg = seg_loss_fn(_wide(out))
     if cfg.whitening and wt_feats is not None:
         inst, dom = main_whitening_loss(wt_feats, cfg.domain_num, cfg.per_domain_batch,
-                                        cfg.margin, cfg.replicate_ref_quirks)
+                                        cfg.margin, cfg.replicate_ref_quirks, cfg.mesh)
     else:
         inst = dom = torch.zeros((), dtype=loss_seg.dtype, device=out.device)
     total = loss_seg + cfg.instance_wt_gm * inst + cfg.domain_wt_gm * dom
     total.backward()
+    if cfg.mesh is not None:
+        mean_grads_(net.parameters(), cfg.mesh)
     opt.step()
     out = out.detach()
     # train Dice (smoothed) at the reference's 0.75 threshold
@@ -138,9 +156,11 @@ def _shape_phase(main: NetState, stud: NetState, image, mask, cfg: StepConfig,
         kd = torch.mean(torch.square(_wide(mu_t) - _wide(mu_s)))
         inst_total, inst_ij, inst_ii, dom = student_whitening_loss(
             wt_feats, cfg.domain_num, cfg.per_domain_batch, cfg.margin,
-            cfg.replicate_ref_quirks)
+            cfg.replicate_ref_quirks, cfg.mesh)
         total = kd + cfg.instance_wt_gm * inst_total + cfg.domain_wt_gm * dom
         total.backward()
+        if cfg.mesh is not None:
+            mean_grads_(stud.net.parameters(), cfg.mesh)
         stud.opt.step()
         metrics = {"loss_kd": kd, "loss_ins_wt_shape": inst_total,
                    "loss_ins_wt_shape_ij": inst_ij, "loss_ins_wt_shape_ii": inst_ii,
@@ -148,12 +168,17 @@ def _shape_phase(main: NetState, stud: NetState, image, mask, cfg: StepConfig,
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def _oc_roi(out_od: torch.Tensor, image: torch.Tensor, target_oc: torch.Tensor):
+def _oc_roi(out_od: torch.Tensor, image: torch.Tensor, target_oc: torch.Tensor,
+            mesh=None):
     """(od_pred, ROI image, pos_weight) from the detached phase-1 logits; a
-    non-finite pos_weight becomes 1.0."""
+    non-finite pos_weight becomes 1.0. With a ``mesh``, the numerator and the
+    denominator are the sums over its ranks."""
     od_pred = (torch.sigmoid(out_od) > 0.75).to(image.dtype)
     image_roi = (image + 1.0) * od_pred - 1.0
-    pos_w = torch.sum(od_pred) / torch.sum(od_pred * target_oc)
+    num, den = torch.sum(od_pred), torch.sum(od_pred * target_oc)
+    if mesh is not None:
+        num, den = all_reduce_sum(torch.stack([num, den]), mesh)
+    pos_w = num / den
     pos_w = torch.where(torch.isfinite(pos_w), pos_w, torch.ones_like(pos_w))
     return od_pred, image_roi, pos_w
 
@@ -192,7 +217,7 @@ def make_train_step(cfg: StepConfig, *, device: str | torch.device = "cuda"):
                               generator)
 
         # ---- phase 3: OC segmentation on the OD ROI -------------------------
-        od_pred, image_roi, pos_w = _oc_roi(out_od, image, target_oc)
+        od_pred, image_roi, pos_w = _oc_roi(out_od, image, target_oc, cfg.mesh)
         _, m3 = _seg_phase(
             state.oc, image_roi, target_oc, image_roi,
             lambda out: bce_logits_pos_weight(out * od_pred, target_oc, pos_w),

@@ -1,5 +1,6 @@
-"""The training orchestrator for one device (counterpart of
-``wt_pse_tpu/train/trainer.py``, after the reference's ``Trainer.py:58-1060``).
+"""The training orchestrator (counterpart of ``wt_pse_tpu/train/trainer.py``,
+after the reference's ``Trainer.py:58-1060``), on one device or data-parallel
+over the ranks of a process group.
 
 - The train pools live on the device as uint8 (:func:`stack_domains`); each
   step samples, augments and normalises its batch there
@@ -35,8 +36,18 @@ epoch)``, so a run resumed at an epoch draws what the uninterrupted run drew
 no distillation phases, its own predict, and the per-epoch loss-trace files
 of the reference's joint epoch). ``hparams['compute_dtype']`` may be
 ``'bfloat16'`` for either (``models/layers.py``); ``run_meta.json`` records
-it. Data parallelism is not ported and raises ``NotImplementedError``
-(``ROADMAP.md``, Queue 1).
+it.
+
+Data parallelism (``dp``, ``dp_devices``; ``parallel/dp.py``): one process
+per card, started by torchrun, the nets built with sync BatchNorm over the
+mesh of the first N ranks, each rank sampling its own share of every domain
+(its generator seeded from (seed, epoch) and its rank, unchanged at N = 1),
+and the DP step's collectives. Rank 0 writes the run directory (the others
+log nothing) and the checkpoints, then every rank passes a barrier.
+Validation predicts batch-sharded when N divides ``eval_batch_size``, and
+rank 0's numbers decide the best model on every rank. The state is
+replicated, so checkpoints and resume do not depend on N; every rank loads
+the same file to resume.
 """
 
 from __future__ import annotations
@@ -55,6 +66,11 @@ from wt_pse_tpu_torch.data.augment import make_device_batch_fn
 from wt_pse_tpu_torch.data.fundus import FundusDomain, encode_masks
 from wt_pse_tpu_torch.io.checkpoint import restore_ensemble, save_ensemble
 from wt_pse_tpu_torch.models.common import ModelConfig
+from wt_pse_tpu_torch.parallel.collectives import barrier, broadcast_floats
+from wt_pse_tpu_torch.parallel.distributed import rank_and_world
+from wt_pse_tpu_torch.parallel.dp import choose_ranks, make_dp_fused, rank_seed
+from wt_pse_tpu_torch.parallel.mesh import data_mesh
+from wt_pse_tpu_torch.parallel.spatial import batch_sharded
 from wt_pse_tpu_torch.runtime import resolve_device
 from wt_pse_tpu_torch.config.hparams import ALGORITHMS, JOINT
 from wt_pse_tpu_torch.train.eval import evaluate_domain, make_predict_fn_for
@@ -116,11 +132,6 @@ def viz_forward(main_od: torch.nn.Module, main_oc: torch.nn.Module, batch: dict)
     return roi[0], att_oc[0].float(), t_oc[0], out_oc[0]
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to wt_pse_tpu_torch yet; see ROADMAP.md, Queue 1")
-
-
 class Trainer:
     def __init__(
         self,
@@ -157,11 +168,20 @@ class Trainer:
         dp_devices: int | None = None,
         device: str | torch.device = "cuda",
     ):
-        """``dp=None`` and ``dp=False`` train on the one ``device``;
-        ``dp=True`` or ``dp_devices`` raise until data parallelism is ported."""
+        """``dp``: data parallelism over the ranks of the process group
+        (``parallel/distributed.py::initialize_multihost``; one process a
+        card, ``device`` this rank's card). ``None`` turns it on when the
+        group has more than one rank; ``dp_devices`` caps N; under auto, N
+        falls to the largest divisor of the per-domain batch, and an explicit
+        ``dp=True`` with an indivisible batch raises (``parallel/dp.py::
+        choose_ranks``). A rank outside the chosen N raises rather than train
+        a copy of its own. ``dp=False`` trains on the one ``device``.
+
+        Reproducibility: the same seed takes another, statistically
+        equivalent, trajectory under data parallelism on more than one rank
+        (each rank samples its own stream; BatchNorm sums in another order);
+        ``dp=False`` reproduces a single-device run."""
         self.device = resolve_device(device)
-        if dp or dp_devices:
-            raise _not_ported("data parallelism (dp / dp_devices)")
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}; have {ALGORITHMS}")
         if train_viz_interval <= 0:  # "off" is train_visualization=False
@@ -193,10 +213,28 @@ class Trainer:
             kw.update({k: v for k, v in lr_schedule.items() if v is not None})
             self._lr_kwargs = kw
 
+        self.rank, world = rank_and_world()
+        auto_dp = dp is None
+        self.dp, self.n_dev = choose_ranks(dp, dp_devices, self.per_domain_batch, world)
+        self.mesh = data_mesh(self.n_dev) if self.dp else None  # collective: every rank
+        if self.rank >= self.n_dev:
+            raise ValueError(
+                f"rank {self.rank} of {world} is outside the {self.n_dev}-rank "
+                f"{'data-parallel group' if self.dp else 'single-device run'} this "
+                f"configuration trains on (per-domain batch {self.per_domain_batch}); launch "
+                f"{self.n_dev} process(es): torchrun --nproc-per-node {self.n_dev}")
+        if self.dp:
+            print(f"[trainer] data-parallel over {self.n_dev} ranks: "
+                  f"{self.per_domain_batch // self.n_dev}/domain/rank, global batch "
+                  f"{self.per_domain_batch * self.domain_num}")
+        # rank 0 owns the run directory; the other ranks write nothing
+        self.is_main_process = self.rank == 0
+
         self.hparams = dict(hparams)
         self.label = label
         self.out = out_dir
-        self.logger = RunLogger(out_dir, tensorboard=tensorboard)
+        self.logger = RunLogger(out_dir, tensorboard=tensorboard,
+                                null=not self.is_main_process)
         self.max_epoch = max_epoch
         self.stop_epoch = stop_epoch if stop_epoch is not None else max_epoch
         self.interval_validate = interval_validate
@@ -207,16 +245,30 @@ class Trainer:
         self.lr_oc, self.lr_oc_shape = lr_oc, lr_oc_shape
 
         self.algorithm = algorithm
-        self.cfg = ModelConfig.from_hparams(self.hparams)
+        self.cfg = ModelConfig.from_hparams(self.hparams, bn_mesh=self.mesh)  # sync BN under DP
         self.state: WTPSETrainState = init_ensemble(
             self.cfg, device=self.device, generator=torch.Generator().manual_seed(seed),
             lr_od=lr_od, lr_od_shape=lr_od_shape, lr_oc=lr_oc, lr_oc_shape=lr_oc_shape,
             algorithm=algorithm)
         self.data = stack_domains(train_domains, self.device)
-        self._batch_fn = make_device_batch_fn(self.per_domain_batch, device=self.device)
-        self._train_step = make_train_step(
-            StepConfig(self.hparams, self.domain_num, self.per_domain_batch,
-                       replicate_ref_quirks, distill=algorithm != JOINT), device=self.device)
+        if self.dp:
+            fused = make_dp_fused([ns.net for ns in self.state.net_states()], self.hparams,
+                                  self.mesh, self.domain_num, self.per_domain_batch,
+                                  replicate_ref_quirks, distill=algorithm != JOINT,
+                                  device=self.device)
+            self._batch_fn, self._train_step = fused.batch_fn, fused.train_step
+        else:
+            self._batch_fn = make_device_batch_fn(self.per_domain_batch, device=self.device)
+            self._train_step = make_train_step(
+                StepConfig(self.hparams, self.domain_num, self.per_domain_batch,
+                           replicate_ref_quirks, distill=algorithm != JOINT),
+                device=self.device)
+        # validation rides the mesh when N divides the eval chunk (the wrapper
+        # pads a chunk to a multiple of N; JAX's trainer.py:372-391)
+        self._shard_eval = self.dp and eval_batch_size % self.n_dev == 0
+        if self.dp and not self._shard_eval:
+            print(f"[trainer] eval_batch_size {eval_batch_size} not divisible by "
+                  f"{self.n_dev} ranks - validation runs unsharded (single device)")
         self._gen = torch.Generator(device=self.device)
         self._rollbacks = 0
 
@@ -283,10 +335,13 @@ class Trainer:
             "max_epoch": max_epoch, "stop_epoch": self.stop_epoch,
             "replicate_ref_quirks": replicate_ref_quirks,
             "compute_dtype": str(self.hparams.get("compute_dtype", "float32")),
-            "dp": {"requested": "auto" if dp is None else bool(dp), "enabled": False,
-                   "n_devices": 1, "reproduce_single_device": None},
+            "dp": {"requested": "auto" if auto_dp else bool(dp), "enabled": self.dp,
+                   "n_devices": self.n_dev,
+                   "reproduce_single_device": None if not self.dp else
+                   "pass dp=False (cli: --no-dp): data parallelism re-decomposes the "
+                   "per-seed sampling stream and the BatchNorm summation order"},
             "resumed_from": resume or None,
-            "n_processes": 1,
+            "n_processes": world,
             "platform": self.device.type,
             "device_name": (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu"),
@@ -304,7 +359,9 @@ class Trainer:
 
         k = min(len(self.val_images), self.eval_batch_size, 4)
         norm = self.val_images[:k].to(torch.float32) / 127.5 - 1.0  # NHWC
-        out_od, out_oc = predict(norm.permute(0, 3, 1, 2))
+        out_od, out_oc = predict(norm.permute(0, 3, 1, 2))  # on every rank: a collective
+        if not self.is_main_process:
+            return
         pred_od = (torch.sigmoid(out_od[:, 0]) > 0.75).cpu().numpy()
         pred_oc = (torch.sigmoid(out_oc[:, 0]) > 0.75).cpu().numpy()
         norm = norm.cpu().numpy()
@@ -341,10 +398,14 @@ class Trainer:
         The seconds spent (``predict`` / ``upsample`` / ``score`` on the host
         path, ``device`` on the fast one) are appended to
         ``validation_seconds``; the engine that scored is
-        ``scoring_backend``."""
+        ``scoring_backend``. Under data parallelism every rank validates
+        (batch-sharded when N divides ``eval_batch_size``) and every rank
+        returns rank 0's numbers."""
         predict = make_predict_fn_for(self.algorithm,
                                       [ns.net for ns in self.state.net_states()],
                                       device=self.device)
+        if self._shard_eval:
+            predict = batch_sharded(predict, self.mesh)
         if self.val_visualization:
             self._save_val_montage(predict)
         timings: dict[str, float] = {}
@@ -359,6 +420,11 @@ class Trainer:
                                   self.label, self.eval_batch_size, timings=timings,
                                   backend=self.scoring_backend)
         self.validation_seconds.append(timings)
+        if self.dp:
+            # host scoring could differ between ranks; a rank that took the
+            # other best-model branch would skip the checkpoint's barrier
+            keys = sorted(out)
+            out = dict(zip(keys, broadcast_floats([float(out[k]) for k in keys], self.mesh)))
         return out
 
     def _profile_once(self):
@@ -368,7 +434,8 @@ class Trainer:
         from torch.profiler import ProfilerActivity, profile
 
         state = copy.deepcopy(self.state)
-        gen = torch.Generator(device=self.device).manual_seed(_draw_seed(self.seed, -1))
+        gen = torch.Generator(device=self.device).manual_seed(
+            rank_seed(_draw_seed(self.seed, -1), self.mesh))
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
@@ -377,6 +444,8 @@ class Trainer:
                 self._train_step(state, self._batch_fn(self.data, gen), generator=gen)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        if not self.is_main_process:
+            return
         os.makedirs(self.profile_dir, exist_ok=True)
         path = os.path.join(self.profile_dir, "trace.json")
         prof.export_chrome_trace(path)
@@ -390,14 +459,16 @@ class Trainer:
             for ns, lr in zip(self.state.net_states(), lrs):
                 for group in ns.opt.param_groups:
                     group["lr"] = lr
-        self._gen.manual_seed(_draw_seed(self.seed, epoch, self._rollbacks))
+        self._gen.manual_seed(rank_seed(_draw_seed(self.seed, epoch, self._rollbacks),
+                                        self.mesh))
         step_ms = []
         t0 = time.perf_counter()
         for it in range(self.iter_per_epoch):
             batch = self._batch_fn(self.data, self._gen)
             step_ms.append(self._train_step(self.state, batch, generator=self._gen))
             g = epoch * self.iter_per_epoch + it
-            if self.train_visualization and g % self.train_viz_interval == 0:
+            if (self.train_visualization and self.is_main_process
+                    and g % self.train_viz_interval == 0):
                 self._save_train_montage(batch, g)
         self.enqueue_seconds.append(time.perf_counter() - t0)
         names = sorted(step_ms[0])
@@ -410,6 +481,19 @@ class Trainer:
                 (base + it, {k: per_step[j, it] for j, k in enumerate(names)})
                 for it in range(per_step.shape[1]))
         return {k: float(per_step[j].mean()) for j, k in enumerate(names)}
+
+    def _checkpoint(self, epoch: int, best: bool = False) -> None:
+        """``checkpoint_{epoch+1}.pth.tar`` and, for a new best, ``best.json``,
+        written by rank 0; under data parallelism every rank then waits at a
+        barrier, so none runs ahead of a checkpoint being written."""
+        if self.is_main_process:
+            save_ensemble(os.path.join(self.out, f"checkpoint_{epoch + 1}.pth.tar"), self.state)
+            if best:
+                with open(os.path.join(self.out, "best.json"), "w") as f:
+                    json.dump({"objective": self.best["objective"], "epoch": self.best["epoch"],
+                               "best_list": self.best_list}, f)
+        if self.dp:
+            barrier(self.mesh)
 
     def train(self) -> list[float]:
         if self.profile_dir:
@@ -481,16 +565,10 @@ class Trainer:
                     self.best_list = [val["cup_dice"], val["cup_hd"], val["cup_asd"],
                                       val["disc_dice"], val["disc_hd"], val["disc_asd"]]
                     self.logger.best_score(val)
-                    save_ensemble(os.path.join(self.out, f"checkpoint_{epoch + 1}.pth.tar"),
-                                  self.state)
-                    with open(os.path.join(self.out, "best.json"), "w") as f:
-                        json.dump({"objective": self.best["objective"],
-                                   "epoch": self.best["epoch"],
-                                   "best_list": self.best_list}, f)
+                    self._checkpoint(epoch, best=True)
                 elif (epoch + 1) % 300 == 0:
                     # Trainer.py:293-303: a periodic checkpoint every 300 epochs
-                    save_ensemble(os.path.join(self.out, f"checkpoint_{epoch + 1}.pth.tar"),
-                                  self.state)
+                    self._checkpoint(epoch)
             else:
                 _csv()
         return list(self.best_list)

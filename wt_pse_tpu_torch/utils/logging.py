@@ -22,12 +22,19 @@ LOG_HEADERS = [
 
 
 class RunLogger:
-    def __init__(self, out_dir: str, tensorboard: bool = False):
+    def __init__(self, out_dir: str, tensorboard: bool = False, null: bool = False):
+        """``null=True``: a logger that writes nothing (every method is a
+        no-op and no directory is made). The ranks of a data-parallel run
+        other than 0 take it: they run the same loop on the same state, and
+        rank 0 owns the run directory."""
         self.out = out_dir
+        self.null = null
         self.t0 = time.time()
         self.tb = None
         self.csv_path = os.path.join(out_dir, "log.csv")
         self.jsonl_path = os.path.join(out_dir, "metrics.jsonl")
+        if null:
+            return
         os.makedirs(out_dir, exist_ok=True)
         if not os.path.exists(self.csv_path):
             with open(self.csv_path, "w") as f:
@@ -39,11 +46,15 @@ class RunLogger:
 
     def run_meta(self, meta: dict, name: str = "run_meta.json"):
         """One machine-readable record of how the run was configured."""
+        if self.null:
+            return
         with open(os.path.join(self.out, name), "w") as f:
             json.dump(meta, f, indent=2, default=str)
             f.write("\n")
 
     def scalars(self, step: int, payload: dict):
+        if self.null:
+            return
         rec = {"step": step, "t": round(time.time() - self.t0, 3)}
         rec.update({k: float(v) for k, v in payload.items()})
         with open(self.jsonl_path, "a") as f:
@@ -57,6 +68,8 @@ class RunLogger:
         """Per-iteration train scalars, one ``{"kind": "step"}`` JSON line each,
         written in one burst an epoch; ``records`` is an iterable of
         ``(iteration, payload)`` pairs. ``t`` is the time of the burst."""
+        if self.null:
+            return
         t = round(time.time() - self.t0, 3)
         lines = []
         for iteration, payload in records:
@@ -76,6 +89,8 @@ class RunLogger:
                 train_disc: float | None = None):
         """One log.csv row an epoch: the train fields are epoch means; ``val``
         fills the valid/* columns on validation epochs."""
+        if self.null:
+            return
         fmt = lambda v: "" if v is None else round(v, 6)
         row = [epoch, iteration, round(loss_seg, 6), fmt(train_cup),
                fmt(train_disc),
@@ -88,6 +103,8 @@ class RunLogger:
     def image(self, tag: str, img, step: int):
         """An (H, W, 3) uint8 image: a PNG under ``images/`` and, when the
         writer is live, a TensorBoard image."""
+        if self.null:
+            return
         import numpy as np
         from PIL import Image
 
@@ -101,12 +118,16 @@ class RunLogger:
     def loss_trace(self, values: dict):
         """Per-epoch loss-trace files: one ``<name>.txt`` a key, one line an
         epoch, spelt ``'{}\\n'.format(value)``."""
+        if self.null:
+            return
         for name, v in values.items():
             with open(os.path.join(self.out, f"{name}.txt"), "a") as f:
                 f.write("{}\n".format(v))
 
     def best_score(self, val: dict):
         """score.txt, appended on each new best (Trainer.py:279-281 format)."""
+        if self.null:
+            return
         with open(os.path.join(self.out, "score.txt"), "a") as f:
             f.write(
                 "cd:{} dd:{} c_hd:{} d_hd:{} c_asd:{} d_asd:{}\n".format(
