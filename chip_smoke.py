@@ -106,7 +106,24 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    and OC) on a synthetic on-disk split of 4 domains written with PIL, to one
    validation each: exit 0, ``sweep_results.json`` with both keys and the
    summary. A rank on any card but the first cannot run here (one card), so
-   ``torch.cuda.set_device`` of another rank is not exercised.
+   ``torch.cuda.set_device`` of another rank is not exercised;
+11. the rest of the JAX package's surface, each sharded part in processes of
+   its own that this script starts and stops: (a) ``spatial_sharded``, the
+   two-stage predict of WT_PSE at full width in f32 on a batch of 2 at
+   1024x1024 with the image's rows split over 2, then 4, gloo ranks sharing
+   the card (the halo exchanges by hand, over all-reduce), against the
+   single-process predict on the card (and that one against the CPU): OD
+   logits at class conv, the OD pixels on the other side of the 0.75
+   threshold (at most 1 in 10^4), OC at class conv farther than the OC
+   stage's reach (170 pixels) from any of them, every rank holding the same outputs,
+   the halo exchanges of a predict and no covariance launch, and the times
+   of both; (b) every op of ``data/augment_extras.py`` at 256x256 on the card
+   against the CPU with the same injected draws (images at ``f32_reduce``,
+   masks exact, the floored gamma curve within 1 at no more than 1 in 10^3
+   pixels; the elastic transform's and the rotation's images at class conv,
+   the elastic transform's blurred field at ``f32_reduce``) and each op's
+   median time; (c) ``InstanceWhitening`` on the card
+   against the CPU at ``f32_reduce``.
 
 The card's name and power limit follow the build line. The line before the
 last is a JSON ``kernels`` record of four rows, the f32 and the bf16 variant
@@ -167,6 +184,18 @@ JOINT = "Unet_nips2023_joint_shape_regularization"
 DP_EPOCHS = 3              # phase 10 (a): 3 epochs of 4 steps, then one validation
 DP_RANK_TIMEOUT_S = 420.0  # a phase 10 rank that hangs fails the run
 DP_STEP_HW = 256           # phase 10 (b): the image size of the 2-rank step
+SPATIAL_HW = 1024          # phase 11 (a): a megapixel image, batch 2, rows split over ranks
+SPATIAL_WORLDS = (2, 4)
+# the seeded OD head's logits are scaled by this, so that few lie near the
+# 0.75 threshold, then shifted so that their median lies on it (half the image
+# is ROI): the draws behind a seed differ between torch versions
+SPATIAL_OD_GAIN = 20.0
+# the two-stage predict's OC logit at a pixel reads the ROI within this many
+# pixels (the receptive field of a 5-level U-Net of 3x3 convs, 167, or of its
+# student's DeepWT + trunk, 168, with a margin): an OD pixel thresholded the
+# other way changes the OC logits this far around it
+OC_REACH = 170
+EXTRAS_HW = 256            # phase 11 (b): the transform library's image size
 
 
 def log(msg: str) -> None:
@@ -1327,6 +1356,334 @@ def dp_path(tmp: str, p6: dict) -> None:
                          f"{proc.stderr[-4000:]}")
 
 
+def spatial_nets(dev, lift: float = 0.0):
+    """Phase 11 (a)'s WT_PSE nets at full width from a seed, the OD head's
+    logits scaled by ``SPATIAL_OD_GAIN`` and shifted by ``lift``."""
+    from wt_pse_tpu_torch.config import default_hparams
+    from wt_pse_tpu_torch.models.common import ModelConfig
+    from wt_pse_tpu_torch.train.state import init_ensemble
+
+    state = init_ensemble(ModelConfig.from_hparams(default_hparams("WT_PSE")), device=dev,
+                          generator=torch.Generator().manual_seed(8))
+    nets = [ns.net for ns in state.net_states()]
+    with torch.no_grad():
+        nets[0].outc[0].weight *= SPATIAL_OD_GAIN
+        nets[0].outc[0].bias.mul_(SPATIAL_OD_GAIN).add_(lift)
+    return nets
+
+
+def median_lift(nets, image, dev) -> float:
+    """The shift that puts the median OD logit of ``image`` just above the
+    0.75 threshold (by 0.01: no logit is put on it), so that about half of
+    the image is ROI."""
+    from wt_pse_tpu_torch.train.eval import make_predict_fn
+
+    od, _ = make_predict_fn(*nets, device=dev)(image)
+    return math.log(3.0) - float(od.median()) + 0.01
+
+
+def spatial_image(dev) -> torch.Tensor:
+    """(2, 3, SPATIAL_HW, SPATIAL_HW) in [-1, 1]: noise over a bright disc."""
+    r = np.random.RandomState(12)
+    yy, xx = np.mgrid[0:SPATIAL_HW, 0:SPATIAL_HW]
+    disc = ((yy - 500) ** 2 + (xx - 540) ** 2 < 300 ** 2).astype(np.float32)
+    img = r.rand(2, 3, SPATIAL_HW, SPATIAL_HW).astype(np.float32) * 1.4 - 1 + 0.6 * disc
+    return torch.from_numpy(img).to(dev)
+
+
+def time_predicts(predict, image, n: int = 3) -> tuple:
+    """A warm-up call (cuDNN picks its algorithms for the shapes), then ``n``
+    timed calls: (the last outputs, their host seconds, each ended by a
+    synchronize)."""
+    predict(image)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        out, t = timed(lambda: predict(image))
+        times.append(t)
+    return out, times
+
+
+def profile_predict(predict, image) -> dict:
+    """One traced predict: the card's busy ms and the three kernels that took
+    the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        predict(image)
+        torch.cuda.synchronize()
+    busy, _, by_name, _ = device_time(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return {"busy_ms": busy / 1e3,
+            "top": [(name[:70], round(us / 1e3, 2)) for name, us in top]}
+
+
+def _spatial_rank(rank: int, lift: float, sharded: bool) -> dict:
+    """Phase 11 (a), in a process of its own on the card: the two-stage
+    predict, ``spatial_sharded`` over the world's gloo ranks or (``sharded``
+    False, a world of 1) unsharded. Its outputs (rank 0) or their digest, the
+    halo exchanges and covariance launches of one predict, the predict's
+    times and a profile of one."""
+    import hashlib
+
+    from wt_pse_tpu_torch.ops import covariance_cuda as cc
+    from wt_pse_tpu_torch.parallel.collectives import halo_rows
+    from wt_pse_tpu_torch.parallel.mesh import data_mesh
+    from wt_pse_tpu_torch.parallel.spatial import spatial_sharded
+    from wt_pse_tpu_torch.runtime import resolve_device
+    from wt_pse_tpu_torch.train.eval import make_predict_fn
+
+    dev = resolve_device("cuda:0")
+    predict = make_predict_fn(*spatial_nets(dev, lift), device=dev)
+    if sharded:
+        predict = spatial_sharded(predict, data_mesh())
+    image = spatial_image(dev)
+    predict(image)
+    torch.cuda.synchronize()
+    zero_counts(cc)
+    before = halo_rows.exchanges
+    predict(image)
+    torch.cuda.synchronize()
+    exchanges, launches = halo_rows.exchanges - before, read_counts(cc)
+    (od, oc), times = time_predicts(predict, image)
+    od, oc = od.cpu().numpy(), oc.cpu().numpy()
+    return {"od": od if rank == 0 else None, "oc": oc if rank == 0 else None,
+            "digest": hashlib.sha256(od.tobytes() + oc.tobytes()).hexdigest(),
+            "exchanges": exchanges, "launches": launches, "seconds": times,
+            "profile": profile_predict(predict, image)}
+
+
+def hold_two_stage(got_od, got_oc, want_od, want_oc) -> dict:
+    """NCHW OD logits against ``want`` (worst |error| / class conv's bound),
+    the OD pixels on the other side of sigmoid 0.75 (the predict's own f32
+    test), and OC farther than ``OC_REACH`` from any such pixel (a flip
+    changes the ROI that the OC stage reads around it), as
+    ``tests/test_torch_spatial.py`` holds them."""
+    rtol, atol = CONV
+
+    def mask(od):
+        return (torch.sigmoid(torch.tensor(np.asarray(od, np.float32))) > 0.75).numpy()
+
+    got_m, want_m = mask(got_od), mask(want_od)
+    got_od, got_oc, want_od, want_oc = (np.asarray(a, np.float64)
+                                        for a in (got_od, got_oc, want_od, want_oc))
+    flips = got_m != want_m
+    near = np.zeros_like(flips)
+    for b, c, y, x in np.argwhere(flips):
+        near[b, c, max(0, y - OC_REACH):y + OC_REACH + 1, max(0, x - OC_REACH):x + OC_REACH + 1] = 1
+    od_err = float(np.abs(got_od - want_od).max() / (atol + rtol * np.abs(want_od).max()))
+    oc_err = float(np.abs(np.where(near, 0.0, got_oc - want_oc)).max()
+                   / (atol + rtol * np.abs(want_oc).max()))
+    return {"od_err_of_bound": od_err, "oc_err_of_bound": oc_err,
+            "flipped": int(flips.sum()), "pixels": int(flips.size),
+            "oc_left_out": float(near.mean()), "roi_share": float(want_m.mean())}
+
+
+def extras_cases(hw: int = EXTRAS_HW, seed: int = 21) -> dict:
+    """Phase 11 (b): every op of ``data/augment_extras.py`` on inputs and
+    draws made on the CPU from a seed, each gate drawn so the op applies.
+    ``name -> (fn(device) -> tuple of outputs, how to hold each output)``:
+    ``'exact'``, ``'f32'`` (class f32_reduce, normwise), ``'conv'`` (class
+    conv, normwise) or ``'floor'`` (a floored power curve: pixels within 1 of
+    each other, counted). The images of the elastic transform and the
+    rotation are held at class conv: each moves its samples by coordinates
+    that carry a rounding of their own on each device, multiplied on the way
+    to the output by the image's gradient: the elastic transform's blurred
+    field (held at f32_reduce on its own, as ``_gaussian_blur_2d``) times
+    alpha = 2 H pixels, and the rotation's cos and sin (an ulp apart between
+    CUDA's and the CPU's libraries) times up to H / 2 pixels."""
+    from wt_pse_tpu_torch.data import augment_extras as X
+
+    g = torch.Generator().manual_seed(seed)
+    r = np.random.RandomState(seed)
+    u = lambda *shape: torch.rand(shape, generator=g)
+    img = torch.from_numpy(np.floor(r.rand(hw, hw, 3) * 256).astype(np.float32))
+    unit = img / 255.0  # on the CPU: the card divides by a scalar otherwise
+    mask = torch.from_numpy((r.rand(hw, hw) > 0.5).astype(np.float32))
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    two = np.stack([(yy - hw / 2) ** 2 + (xx - hw / 2) ** 2 < (hw / 8) ** 2,
+                    (yy - hw / 2) ** 2 + (xx - hw / 2) ** 2 < (hw / 4) ** 2], -1)
+    two = torch.from_numpy(two.astype(np.float32))
+    gray = torch.from_numpy(r.choice([0, 30, 128, 200, 255], (hw, hw)).astype(np.uint8))
+    draws = {
+        "salt_pepper_noise": (torch.tensor(0.9), u(hw, hw)),
+        "adjust_light": (torch.tensor(0.9), u()),
+        "random_eraser": (torch.tensor(0.9), u(), u(), torch.randint(0, hw, (), generator=g),
+                          torch.randint(0, hw, (), generator=g), u()),
+        "elastic_transform": (torch.tensor(0.9), u(hw, hw), u(hw, hw)),
+        "random_flip": torch.tensor(0.1),
+        "random_rotate": u(),
+        "random_sized_crop": tuple(u() for _ in range(5)),
+        "soft_label": (u(), u(3)),
+    }
+
+    def on(dev, x):
+        return tuple(on(dev, t) for t in x) if isinstance(x, tuple) else x.to(dev)
+
+    def op(name, call):
+        return lambda dev: call(on(dev, img), on(dev, mask), on(dev, draws.get(name)), dev)
+
+    return {
+        "salt_pepper_noise": (op("salt_pepper_noise", lambda i, m, d, dev: (
+            X.salt_pepper_noise(unit.to(dev), 0.05, draws=d),)), ("exact",)),
+        "adjust_light": (op("adjust_light", lambda i, m, d, dev: (
+            X.adjust_light(i, draws=d),)), ("floor",)),
+        "random_eraser": (op("random_eraser", lambda i, m, d, dev: (
+            X.random_eraser(i, draws=d),)), ("exact",)),
+        "_gaussian_blur_2d": (lambda dev: (X._gaussian_blur_2d(
+            draws["elastic_transform"][1].to(dev) * 2 - 1, 0.08 * hw),), ("f32",)),
+        "elastic_transform": (op("elastic_transform", lambda i, m, d, dev: X.elastic_transform(
+            i, m, draws=d)), ("conv", "conv")),
+        "random_flip": (op("random_flip", lambda i, m, d, dev: X.random_flip(
+            i, m, draws=d)), ("exact", "exact")),
+        "random_rotate": (op("random_rotate", lambda i, m, d, dev: X.random_rotate(
+            i, m, draws=d)), ("conv", "exact")),
+        "random_sized_crop": (op("random_sized_crop", lambda i, m, d, dev: X.random_sized_crop(
+            i, m, hw, draws=d)), ("f32", "exact")),
+        "get_boundary": (lambda dev: (X.get_boundary(two.to(dev)),), ("exact",)),
+        "normalize_single_label": (lambda dev: X.normalize_single_label(
+            img.to(dev), gray.to(dev), "OD"), ("f32", "exact")),
+        "center_crop": (lambda dev: (X.center_crop(img.to(dev), hw // 2),), ("exact",)),
+        "soft_label": (lambda dev: (X.soft_label(torch.eye(3)[1].to(dev), draws=on(
+            dev, draws["soft_label"])),), ("f32",)),
+        "fixed_resize": (lambda dev: (X.fixed_resize(img.to(dev), 2 * hw),), ("f32",)),
+        "normalize_mean_std": (lambda dev: (X.normalize_mean_std(
+            img.to(dev), (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),), ("f32",)),
+        "normalize_cityscapes": (lambda dev: (X.normalize_cityscapes(
+            img.to(dev), (73.2, 82.9, 72.4)),), ("f32",)),
+    }
+
+
+def hold_extras(got: tuple, want: tuple, kinds: tuple) -> dict:
+    """Each output of an op on the card against the CPU's, held as ``kinds``
+    says (``extras_cases``); returns the worst error / bound of the f32
+    outputs, the differing elements of the exact ones and the floor ties."""
+    res = {"f32_err_of_bound": 0.0, "conv_err_of_bound": 0.0, "exact_diffs": 0,
+           "floor_ties": 0, "floor_max": 0.0}
+    for a, b, kind in zip(got, want, kinds):
+        a, b = a.cpu().double(), b.double()
+        if a.shape != b.shape:
+            raise SystemExit(f"phase 11 (b): shape {tuple(a.shape)} against {tuple(b.shape)}")
+        if kind in ("f32", "conv"):
+            rtol, atol = (F32_REDUCE_RTOL, 1e-9) if kind == "f32" else CONV
+            key = f"{kind}_err_of_bound"
+            res[key] = max(res[key], float((a - b).abs().max()) / (atol + rtol * float(b.abs().max())))
+        elif kind == "exact":
+            res["exact_diffs"] += int((a != b).sum())
+        else:
+            res["floor_ties"] += int((a != b).sum())
+            res["floor_max"] = max(res["floor_max"], float((a - b).abs().max()))
+    return res
+
+
+def spatial_path(cc, dev, tmp: str) -> dict:
+    """Phase 11: (a) H-axis sharded two-stage predict at 1024x1024 on 2 and 4
+    gloo ranks sharing the card, against the single-process predict on the
+    card; (b) the transform library on the card against the CPU; (c)
+    ``InstanceWhitening`` on the card against the CPU."""
+    from wt_pse_tpu_torch.models.layers import InstanceWhitening
+    from wt_pse_tpu_torch.parallel.distributed import run_local_ranks
+    from wt_pse_tpu_torch.train.eval import make_predict_fn
+
+    # (a) the single process (here, against the CPU, and in a fresh process),
+    # then each world, each rank a process of its own
+    nets = spatial_nets(dev)
+    image = spatial_image(dev)
+    lift = median_lift(nets, image, dev)
+    with torch.no_grad():
+        nets[0].outc[0].bias += lift
+    predict = make_predict_fn(*nets, device=dev)
+    zero_counts(cc)
+    (want_od, want_oc), t_single = time_predicts(predict, image)
+    expect_counts(read_counts(cc), 0, 0, "phase 11 (a) single-process predict")
+    want_od, want_oc = want_od.cpu().numpy(), want_oc.cpu().numpy()
+    t0 = time.perf_counter()
+    cpu_od, cpu_oc = make_predict_fn(*spatial_nets("cpu", lift), device="cpu")(image.cpu())
+    t_cpu = time.perf_counter() - t0
+    vs_cpu = hold_two_stage(want_od, want_oc, cpu_od.numpy(), cpu_oc.numpy())
+    log(f"phase 11 (a) single-process two-stage predict, WT_PSE f32, batch 2 at "
+        f"{SPATIAL_HW}x{SPATIAL_HW} (OD head shifted by {lift:.4f}): " +
+        ", ".join(f"{t * 1e3:.1f}" for t in t_single) + f" ms; profile "
+        f"{json.dumps(profile_predict(predict, image))}; against the same predict on the "
+        f"CPU ({t_cpu:.1f} s) {json.dumps(vs_cpu)}")
+    if vs_cpu["od_err_of_bound"] > 1.0 or vs_cpu["oc_err_of_bound"] > 1.0 or \
+            vs_cpu["flipped"] > 1e-4 * vs_cpu["pixels"]:
+        raise SystemExit("phase 11 (a): the megapixel predict on the card disagrees with the CPU")
+    (fresh,) = run_local_ranks(_spatial_rank, 1, f"file://{tmp}/rdzv_s1", (lift, False),
+                               backend="gloo", timeout_s=DP_RANK_TIMEOUT_S)
+    log(f"phase 11 (a) the same predict in a fresh process: " +
+        ", ".join(f"{t * 1e3:.1f}" for t in fresh["seconds"]) + f" ms, bitwise equal to this "
+        f"process's: {np.array_equal(fresh['od'], want_od) and np.array_equal(fresh['oc'], want_oc)}"
+        f"; profile {json.dumps(fresh['profile'])}")
+    out = {"single_ms": [t * 1e3 for t in t_single], "fresh_ms": fresh["seconds"],
+           "vs_cpu": vs_cpu}
+    for world in SPATIAL_WORLDS:
+        t0 = time.perf_counter()
+        ranks = run_local_ranks(_spatial_rank, world, f"file://{tmp}/rdzv_s{world}",
+                                (lift, True), backend="gloo", timeout_s=DP_RANK_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        held = hold_two_stage(ranks[0]["od"], ranks[0]["oc"], want_od, want_oc)
+        same = all(r["digest"] == ranks[0]["digest"] for r in ranks)
+        log(f"phase 11 (a) spatial_sharded over {world} gloo ranks on one card "
+            f"({SPATIAL_HW // world} rows a rank): against the single process {json.dumps(held)}; "
+            f"every rank holds the same outputs: {same}; halo exchanges a predict "
+            f"{[r['exchanges'] for r in ranks]}; covariance launches "
+            f"{[sum(r['launches'].values()) for r in ranks]}; predict ms by rank " +
+            "; ".join(", ".join(f"{t * 1e3:.1f}" for t in r["seconds"]) for r in ranks) +
+            f" (host-staged gloo exchanges on one shared card); rank 0's profile "
+            f"{json.dumps(ranks[0]['profile'])}; {wall:.1f} s with the ranks' start")
+        for r in ranks:
+            expect_counts(r["launches"], 0, 0, f"phase 11 (a) {world} ranks")
+        if held["od_err_of_bound"] > 1.0 or held["oc_err_of_bound"] > 1.0 or not same or \
+                held["flipped"] > 1e-4 * held["pixels"] or \
+                len({r["exchanges"] for r in ranks}) != 1 or ranks[0]["exchanges"] == 0:
+            raise SystemExit(f"phase 11 (a): the sharded predict over {world} ranks disagrees "
+                             "with the single process")
+        out[f"ranks_{world}"] = {**held, "exchanges": ranks[0]["exchanges"],
+                                 "seconds": [r["seconds"] for r in ranks]}
+
+    # (b) the transform library, the same draws on the card and on the CPU
+    zero_counts(cc)
+    worst = {"f32_err_of_bound": 0.0, "conv_err_of_bound": 0.0, "exact_diffs": 0,
+             "floor_ties": 0, "floor_max": 0.0}
+    times = {}
+    for name, (fn, kinds) in extras_cases().items():
+        want = fn("cpu")
+        got = fn(dev)
+        torch.cuda.synchronize()
+        res = hold_extras(got, want, kinds)
+        runs = [timed(lambda: fn(dev))[1] for _ in range(20)]
+        times[name] = statistics.median(runs) * 1e3
+        for k in ("f32_err_of_bound", "conv_err_of_bound", "floor_max"):
+            worst[k] = max(worst[k], res[k])
+        for k in ("exact_diffs", "floor_ties"):
+            worst[k] += res[k]
+        if res["f32_err_of_bound"] > 1.0 or res["conv_err_of_bound"] > 1.0 or \
+                res["exact_diffs"] or res["floor_max"] > 1.0 or \
+                res["floor_ties"] > 1e-3 * EXTRAS_HW * EXTRAS_HW * 3:
+            raise SystemExit(f"phase 11 (b) {name}: the card disagrees with the CPU: {res}")
+    expect_counts(read_counts(cc), 0, 0, "phase 11 (b)")
+    log(f"phase 11 (b) the transform library at {EXTRAS_HW}x{EXTRAS_HW} on the card against the "
+        f"CPU, the same draws (14 ops and the elastic transform's blur; to_multilabel and "
+        f"domain_code_one_hot are host helpers): "
+        f"worst {json.dumps(worst)}; median ms a call (inputs moved to the card, ended by a "
+        f"synchronize) {json.dumps({k: round(v, 3) for k, v in times.items()})}")
+    out["extras"] = {**worst, "ms": times}
+
+    # (c) InstanceWhitening
+    x = torch.from_numpy(np.random.RandomState(23).randn(*MAIN_SHAPE).astype(np.float32) * 3 + 1)
+    want = InstanceWhitening()(x)
+    got = InstanceWhitening()(x.to(dev)).cpu()
+    err = float((got - want).abs().max()) / (1e-9 + F32_REDUCE_RTOL * float(want.abs().max()))
+    log(f"phase 11 (c) InstanceWhitening on {tuple(MAIN_SHAPE)} on the card against the CPU: "
+        f"worst |error| / f32_reduce bound {err:.3f}")
+    if err > 1.0:
+        raise SystemExit("phase 11 (c): InstanceWhitening on the card disagrees with the CPU")
+    out["instance_whitening_err_of_bound"] = err
+    return out
+
+
 def time_in_turns(fns, flush, iters: int = 30) -> list[float]:
     """Median ms of one call of each of ``fns``, with ``flush()`` (which evicts
     the L2) before every call, the functions taken in turns in one loop."""
@@ -1488,6 +1845,7 @@ def main() -> int:
         bf16_launches = bf16_path(cc, dev, tmp, f32_step_ms, p6)
         joint_path(cc, dev, tmp, p6)
         dp_path(tmp, p6)
+        spatial_path(cc, dev, tmp)
     for row in rows:  # the counts of the trainers' runs: f32 phase 6, bf16 phase 8
         row["launches"] = (bf16_launches if row["name"].endswith("_bf16")
                            else p6["launches"])[row["name"]]

@@ -21,7 +21,12 @@ post-processing on the card bitwise equal to the CPU, ``device_metrics`` at
 f64 host one, and a Trainer epoch with fast validation and the montage;
 sync BN over a mesh of one process on the card against the CPU at class
 ``conv``, and the DP step over a world-1 NCCL process group within rtol 2e-3
-of the plain step.
+of the plain step; ``spatial_sharded`` over 2 gloo ranks sharing the card
+against the card's unsharded predict (OD at class ``conv``, no OD pixel
+flipped, OC at class ``conv``), and the transform library on the card
+against the CPU with the same draws (``chip_smoke.extras_cases``: images at
+``f32_reduce``, masks exact, the elastic transform and the rotation at
+``conv``).
 """
 
 import numpy as np
@@ -430,3 +435,37 @@ def test_dp_step_over_a_world_one_nccl_mesh_matches_the_plain_step(cuda, tmp_pat
         assert np.isfinite(float(got[k])), k
         if not k.startswith(("loss_kd", "train_dice")):  # as the step test above
             np.testing.assert_allclose(float(got[k]), float(v), rtol=2e-3, atol=1e-5, err_msg=k)
+
+
+def test_spatial_sharded_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """The two-stage predict with the image's rows split over 2 gloo ranks on
+    the card (the halo exchanges over all-reduce) against the unsharded
+    predict on the card."""
+    import chip_smoke as cs
+    import torch_dp_worker as W
+    from wt_pse_tpu_torch.train.eval import make_predict_fn
+
+    image = torch.from_numpy(np.random.RandomState(3).rand(1, 3, 128, 128).astype(np.float32)
+                             * 2 - 1)
+    nets = cs.spatial_nets(cuda, cs.median_lift(cs.spatial_nets(cuda), image.to(cuda), cuda))
+    with torch.no_grad():
+        want_od, want_oc = make_predict_fn(*nets, device=cuda)(image.to(cuda))
+    sds = [{k: v.cpu().numpy() for k, v in n.state_dict().items()} for n in nets]
+    ranks = W.run(W.spatial_rank, tmp_path, [("WT_PSE", None, sds, image.numpy())], "cuda",
+                  world=2)
+    for (res,) in ranks:
+        held = cs.hold_two_stage(res["od"], res["oc"], want_od.cpu().numpy(),
+                                 want_oc.cpu().numpy())
+        assert held["od_err_of_bound"] <= 1 and held["oc_err_of_bound"] <= 1, held
+        assert held["flipped"] == 0 and 0.05 < held["roi_share"] < 0.95, held
+        assert res["exchanges"] == 106
+
+
+def test_the_transform_library_on_the_card_matches_the_cpu(cuda):
+    import chip_smoke as cs
+
+    for name, (fn, kinds) in cs.extras_cases(hw=64).items():
+        res = cs.hold_extras(fn(cuda), fn("cpu"), kinds)
+        assert res["f32_err_of_bound"] <= 1 and res["conv_err_of_bound"] <= 1, (name, res)
+        assert res["exact_diffs"] == 0, (name, res)
+        assert res["floor_max"] <= 1 and res["floor_ties"] <= 1e-3 * 64 * 64 * 3, (name, res)

@@ -1,0 +1,280 @@
+"""H-axis sharded inference (``wt_pse_tpu_torch/parallel/spatial.py::spatial_sharded``)
+with the hand-made halo exchanges (``parallel/collectives.py::halo_rows``), on
+the CPU over gloo ranks spawned by ``run_local_ranks``.
+
+- ``halo_rows`` on 3 ranks: the neighbours' rows, zero or replicated edges,
+  one exchange a call, bf16 kept bf16.
+- The two-stage predict sharded over 2 ranks at 64x64 and 4 ranks at 128x128
+  (32 rows a rank), for WT_PSE in f32, the joint variant and WT_PSE in bf16,
+  from seeded weights (BatchNorm statistics moved off 0 / 1, OD logits
+  lifted so the ROI is not empty) carried to JAX by its own importer.
+  Against the port's unsharded predict: OD logits at class ``conv``, 0 OD
+  pixels on the other side of the 0.75 threshold, OC at class ``conv``.
+  Against JAX's ``make_predict_fn`` (f32 cases): the same bounds, the
+  flipped pixels held to 1 in 10^4 and OC compared farther than the OC
+  stage's reach (170 pixels) from any of them. JAX's bf16 nets differ from the port's
+  by 5-10% of their scale (``ROADMAP.md``, Queue 3), so the bf16 case is held
+  against the port's unsharded bf16 predict only.
+- Every 3x3 conv and every upsample of both predicts takes its rows through
+  the exchange (a mesh of one process, traced), the exchanges a predict are
+  counted, H % (16 N) != 0 raises, and outside the context the layers run
+  today's code bit for bit.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax
+import jax.numpy as jnp
+
+from wt_pse_tpu.config import default_hparams as jax_default_hparams
+from wt_pse_tpu.io.torch_import import convert_state_dict
+from wt_pse_tpu.models.common import ModelConfig as JaxModelConfig
+from wt_pse_tpu.models.joint import JointShapeReg as JaxJoint
+from wt_pse_tpu.models.shape_prior import ShapeStudent as JaxStudent
+from wt_pse_tpu.models.wt_pse import WTPSE as JaxWTPSE
+from wt_pse_tpu.train.eval import make_predict_fn as jax_predict_fn
+from wt_pse_tpu.train.eval import make_predict_fn_joint as jax_predict_fn_joint
+from wt_pse_tpu_torch.config import JOINT, default_hparams
+from wt_pse_tpu_torch.models import layers
+from wt_pse_tpu_torch.models.common import ModelConfig
+from wt_pse_tpu_torch.parallel.mesh import DataMesh
+from wt_pse_tpu_torch.parallel.spatial import spatial_sharded
+from wt_pse_tpu_torch.train.eval import make_predict_fn_for
+from wt_pse_tpu_torch.train.state import init_ensemble
+
+import chip_smoke as cs
+import torch_dp_worker as W
+from torch_port import CONV, assert_close, nchw, torch_single_thread  # noqa: F401
+
+# (algorithm, compute dtype, ranks, H = W, batch)
+CASES = [("WT_PSE", None, 2, 64, 2), (JOINT, None, 2, 64, 2), ("WT_PSE", "bfloat16", 2, 64, 1),
+         ("WT_PSE", None, 4, 128, 1)]
+# halo exchanges a two-stage predict: a 3x3 conv or an upsample each. WT_PSE, a
+# stage: the U-Net's 22 convs and 4 upsamples, the student's DeepWT 4 convs,
+# trunk 19 and 4 upsamples. The joint variant (whitening off), a stage: the
+# U-Net's 26, its prior's inc 2, trunk 19 and 4 upsamples.
+EXCHANGES = {"WT_PSE": 2 * (26 + 27), JOINT: 2 * (26 + 25)}
+
+
+def _jax_nets(algorithm):
+    cfg = JaxModelConfig.from_hparams(jax_default_hparams(algorithm))
+    main = JaxJoint if algorithm == JOINT else JaxWTPSE
+    return main(cfg), JaxStudent(cfg), main(cfg, two_step=True), JaxStudent(cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _state_dicts(algorithm):
+    """The four nets' weights: the port's seeded init, BatchNorm statistics
+    moved off 0 / 1, the OD logits lifted."""
+    state = init_ensemble(ModelConfig.from_hparams(default_hparams(algorithm)), device="cpu",
+                          generator=torch.Generator().manual_seed(5), algorithm=algorithm)
+    r = np.random.RandomState(11)
+    out = []
+    for i, ns in enumerate(state.net_states()):
+        sd = {k: v.clone() for k, v in ns.net.state_dict().items()}
+        for k, v in sd.items():
+            if k.endswith("running_var"):
+                v += torch.from_numpy(0.1 * r.rand(*v.shape).astype(np.float32))
+            elif k.endswith("running_mean"):
+                v += torch.from_numpy(0.05 * r.randn(*v.shape).astype(np.float32))
+        if i == 0:
+            sd["outc.0.bias"] += 1.1
+        out.append(sd)
+    return out
+
+
+def _jax_variables(algorithm):
+    return [jax.tree.map(jnp.asarray, convert_state_dict(sd)) for sd in _state_dicts(algorithm)]
+
+
+def _port_nets(algorithm, dtype):
+    hp = dict(default_hparams(algorithm), compute_dtype=dtype)
+    state = init_ensemble(ModelConfig.from_hparams(hp), device="cpu", algorithm=algorithm)
+    nets = [ns.net for ns in state.net_states()]
+    for net, sd in zip(nets, _state_dicts(algorithm)):
+        net.load_state_dict(sd, strict=True)
+    return nets
+
+
+def _image(b, hw, seed=0):
+    return np.random.RandomState(seed).rand(b, hw, hw, 3).astype(np.float32) * 2 - 1
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case sharded (2-rank cases in one world, the 4-rank case in
+    another), with the port's unsharded predict and JAX's."""
+    tmp = tmp_path_factory.mktemp("spatial")
+    prepared = []
+    for algorithm, dtype, world, hw, b in CASES:
+        nets = _port_nets(algorithm, dtype)
+        img = _image(b, hw)
+        with torch.no_grad():
+            base = make_predict_fn_for(algorithm, nets, device="cpu")(nchw(img))
+        sds = [{k: v.numpy().copy() for k, v in n.state_dict().items()} for n in nets]
+        prepared.append(((algorithm, dtype, sds, nchw(img).numpy()), base, img))
+    results = {}
+    for world in (2, 4):
+        idx = [i for i, c in enumerate(CASES) if c[2] == world]
+        per_rank = W.run(W.spatial_rank, tmp, [prepared[i][0] for i in idx], world=world)
+        for j, i in enumerate(idx):
+            results[i] = [r[j] for r in per_rank]
+    out = {}
+    for i, (algorithm, dtype, world, hw, b) in enumerate(CASES):
+        jax_out = None
+        if dtype is None:
+            jnets = _jax_nets(algorithm)
+            predict = (jax_predict_fn_joint(jnets[0], jnets[2]) if algorithm == JOINT
+                       else jax_predict_fn(*jnets))
+            jax_out = predict(*_jax_variables(algorithm), jnp.asarray(prepared[i][2]))
+        out[CASES[i]] = (results[i], prepared[i][1], jax_out)
+    return out
+
+
+def _hold(got_od, got_oc, want_od, want_oc, what, max_flips):
+    """``chip_smoke.hold_two_stage`` on NCHW or NHWC logits of one channel:
+    OD at class conv, the OD pixels thresholded the other way at most
+    ``max_flips`` of them, OC at class conv farther than the OC stage's
+    reach from any of them. Returns the measures."""
+    got_od, got_oc, want_od, want_oc = (
+        np.asarray(a, np.float32) if np.shape(a)[1] == 1 else np.moveaxis(np.asarray(a), -1, 1)
+        for a in (got_od, got_oc, want_od, want_oc))
+    held = cs.hold_two_stage(got_od, got_oc, want_od, want_oc)
+    assert held["od_err_of_bound"] <= 1 and held["oc_err_of_bound"] <= 1, (what, held)
+    assert held["flipped"] <= max_flips * held["pixels"], (what, held)
+    return held
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0][:6]}-{c[1] or 'f32'}-{c[2]}x{c[3]}")
+def test_spatial_sharded_matches_the_unsharded_predict(runs, case):
+    ranks, (base_od, base_oc), _ = runs[case]
+    for rank, res in enumerate(ranks):
+        assert res["od"].shape == tuple(base_od.shape)
+        held = _hold(res["od"], res["oc"], base_od, base_oc, f"rank {rank}", 0)
+        assert res["exchanges"] == EXCHANGES[case[0]]
+        np.testing.assert_array_equal(res["od"], ranks[0]["od"])  # every rank holds it all
+    assert 0.02 < held["roi_share"] < 0.9, held  # both stages see image and background
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[1] is None],
+                         ids=lambda c: f"{c[0][:6]}-{c[2]}x{c[3]}")
+def test_spatial_sharded_matches_jax(runs, case):
+    ranks, _, (want_od, want_oc) = runs[case]
+    _hold(ranks[0]["od"], ranks[0]["oc"], want_od, want_oc, "against JAX", 1e-4)
+
+
+def test_halo_rows_on_three_ranks(tmp_path):
+    x = np.random.RandomState(2).rand(2, 3, 12, 5).astype(np.float32)
+    slabs = [x[:, :, 4 * r:4 * r + 4] for r in range(3)]
+    res = W.run(W.halo_rank, tmp_path, slabs, world=3)
+    for r, out in enumerate(res):
+        for fill in ("zero", "replicate"):
+            edge = (lambda row: np.zeros_like(row)) if fill == "zero" else (lambda row: row)
+            above = x[:, :, 4 * r - 1:4 * r] if r > 0 else edge(slabs[r][:, :, :1])
+            below = x[:, :, 4 * r + 4:4 * r + 5] if r < 2 else edge(slabs[r][:, :, -1:])
+            np.testing.assert_array_equal(out[fill],
+                                          np.concatenate([above, slabs[r], below], axis=2))
+        assert out["bf16_dtype"] == "torch.bfloat16"
+        want = torch.from_numpy(out["zero"]).to(torch.bfloat16).float().numpy()
+        np.testing.assert_array_equal(out["bf16"], want)
+        assert out["exchanges"] == 3
+
+
+@pytest.mark.parametrize("algorithm,dtype", [("WT_PSE", None), (JOINT, None),
+                                             ("WT_PSE", "bfloat16")])
+def test_every_conv_and_upsample_takes_its_rows_through_the_exchange(monkeypatch, algorithm,
+                                                                     dtype):
+    """A predict inside ``row_shard`` on a mesh of one process: every F.conv2d
+    with a 3x3 kernel pads no rows (they come from ``halo_rows``), every
+    F.interpolate resizes a slab that carries its halo rows, the exchanges
+    equal the conv and upsample calls, and the result is the unsharded one."""
+    calls = {"conv3": [], "interp": 0, "zero": 0, "replicate": 0, "pool_rows": []}
+    conv2d, interpolate, max_pool2d = F.conv2d, F.interpolate, F.max_pool2d
+    halo = layers.halo_rows
+
+    def traced_conv(x, w, *a, **k):
+        if w.shape[-1] == 3:
+            calls["conv3"].append(tuple(a[2] if len(a) > 2 else k.get("padding")))
+        return conv2d(x, w, *a, **k)
+
+    def traced_interp(x, *a, **k):
+        calls["interp"] += 1
+        return interpolate(x, *a, **k)
+
+    def traced_pool(x, *a, **k):
+        calls["pool_rows"].append(x.shape[2])
+        return max_pool2d(x, *a, **k)
+
+    def traced_halo(x, mesh, fill):
+        calls[fill] += 1
+        return halo(x, mesh, fill)
+
+    nets = _port_nets(algorithm, dtype)
+    predict = make_predict_fn_for(algorithm, nets, device="cpu")
+    img = nchw(_image(1, 32, seed=4))
+    base_od, base_oc = predict(img)
+    monkeypatch.setattr(F, "conv2d", traced_conv)
+    monkeypatch.setattr(F, "interpolate", traced_interp)
+    monkeypatch.setattr(F, "max_pool2d", traced_pool)
+    monkeypatch.setattr(layers, "halo_rows", traced_halo)
+    od, oc = spatial_sharded(predict, DataMesh(None, 0, 1, torch.device("cpu")))(img)
+    monkeypatch.undo()
+    assert calls["conv3"] and all(p == (0, 1) for p in calls["conv3"]), set(calls["conv3"])
+    assert calls["zero"] == len(calls["conv3"])
+    assert calls["interp"] == calls["replicate"] * (2 if dtype else 1)  # bf16: two passes
+    assert calls["zero"] + calls["replicate"] == EXCHANGES[algorithm]
+    assert calls["pool_rows"] and all(h % 2 == 0 for h in calls["pool_rows"])
+    assert_close(od.numpy(), base_od.numpy(), CONV, "od")
+    assert_close(oc.numpy(), base_oc.numpy(), CONV, "oc")
+
+
+@pytest.mark.parametrize("h,n", [(48, 2), (64, 8), (100, 1), (96, 4)])
+def test_rows_not_a_multiple_of_16_n_raise(h, n):
+    mesh = DataMesh(None, 0, n, torch.device("cpu"))
+    with pytest.raises(ValueError, match=f"H % {16 * n} == 0"):
+        spatial_sharded(lambda x: (x,), mesh)(torch.zeros(1, 3, h, 32))
+
+
+def _conv_before(conv, x):
+    """``models/layers.py``'s Conv2d forward as it was before row sharding."""
+    dt = conv.compute_dtype
+    if dt is None:
+        return torch.nn.Conv2d.forward(conv, x)
+    return (F.conv2d(x.to(dt), conv.weight.to(dt), None, 1, conv.padding)
+            + conv.bias.to(dt)[:, None, None])
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_outside_the_context_the_layers_are_unchanged_bitwise(monkeypatch, dtype):
+    """A training forward and backward and a predict, with the layers as they
+    ship and with the code they ran before row sharding: bitwise equal."""
+    hp = dict(default_hparams("WT_PSE"), compute_dtype=dtype)
+
+    def run():
+        torch.manual_seed(0)
+        state = init_ensemble(ModelConfig.from_hparams(hp), device="cpu")
+        net = state.od.net.train()
+        r = np.random.RandomState(1)
+        img = torch.from_numpy(r.rand(3, 3, 32, 32).astype(np.float32) * 2 - 1)
+        mask = torch.from_numpy((r.rand(3, 1, 32, 32) > 0.5).astype(np.float32))
+        eps = torch.from_numpy(r.randn(3, 1, 32, 32).astype(np.float32))
+        logits, _, feats = net(img, mask, img, eps=eps)
+        (logits.float().square().mean() + sum(f.float().mean() for f in feats)).backward()
+        grads = [p.grad.clone() for p in net.parameters() if p.grad is not None]
+        nets = [ns.net for ns in state.net_states()]
+        with torch.no_grad():
+            pred = make_predict_fn_for("WT_PSE", nets, device="cpu")(img)
+        return [logits, *feats, *grads, *pred]
+
+    shipped = run()
+    monkeypatch.setattr(layers.Conv2d, "forward", _conv_before)
+    monkeypatch.setattr(layers, "upsample2x", layers._upsample2x)
+    before = run()
+    assert len(shipped) == len(before) > 10
+    for a, b in zip(shipped, before):
+        assert torch.equal(a, b)

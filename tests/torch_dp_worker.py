@@ -163,3 +163,46 @@ def seg_phase_rank(rank: int, hp: dict, od_state_dict: dict, batch_ranks, eps_ra
             "state_dict": {k: v.numpy().copy() for k, v in ns.net.state_dict().items()},
             "digest": hashlib.sha256(b"".join(
                 v.numpy().tobytes() for v in ns.net.state_dict().values())).hexdigest()}
+
+
+def halo_rank(rank: int, slabs) -> dict:
+    """``halo_rows`` of this rank's slab with either fill, and the exchanges
+    counted over the two calls."""
+    from wt_pse_tpu_torch.parallel.collectives import halo_rows
+
+    mesh = data_mesh()
+    x = _t(slabs[rank])
+    before = halo_rows.exchanges
+    out = {fill: halo_rows(x, mesh, fill).numpy() for fill in ("zero", "replicate")}
+    bf16 = halo_rows(x.to(torch.bfloat16), mesh, "zero")
+    out["bf16_dtype"] = str(bf16.dtype)
+    out["bf16"] = bf16.float().numpy()
+    out["exchanges"] = halo_rows.exchanges - before
+    return out
+
+
+def spatial_rank(rank: int, cases, device: str = "cpu") -> list:
+    """``spatial_sharded`` two-stage predicts on this rank, on ``device``, one
+    a case of (algorithm, compute dtype, the 4 nets' state_dicts, NCHW image):
+    each case's (od, oc) logits for the whole image and its halo exchanges."""
+    from wt_pse_tpu_torch.config import default_hparams
+    from wt_pse_tpu_torch.models.common import ModelConfig
+    from wt_pse_tpu_torch.parallel.collectives import halo_rows
+    from wt_pse_tpu_torch.parallel.spatial import spatial_sharded
+    from wt_pse_tpu_torch.train.eval import make_predict_fn_for
+    from wt_pse_tpu_torch.train.state import init_ensemble
+
+    mesh = data_mesh()
+    out = []
+    for algorithm, dtype, state_dicts, image in cases:
+        hp = dict(default_hparams(algorithm), compute_dtype=dtype)
+        state = init_ensemble(ModelConfig.from_hparams(hp), device=device, algorithm=algorithm)
+        nets = [ns.net for ns in state.net_states()]
+        for net, sd in zip(nets, state_dicts):
+            net.load_state_dict({k: _t(v) for k, v in sd.items()}, strict=True)
+        before = halo_rows.exchanges
+        od, oc = spatial_sharded(make_predict_fn_for(algorithm, nets, device=device), mesh)(
+            _t(image).to(device))
+        out.append({"od": od.cpu().numpy(), "oc": oc.cpu().numpy(),
+                    "exchanges": halo_rows.exchanges - before})
+    return out

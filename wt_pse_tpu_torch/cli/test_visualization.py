@@ -16,9 +16,11 @@ the Dice / HD95 / ASD means and the scoring backend, and with
 ``--save-images`` writes ``original_image/`` and ``overlay/``. Hparam
 leftovers such as ``--compute_dtype bfloat16`` set the nets' compute dtype.
 
-Not ported: an orbax checkpoint directory (the JAX Trainer's format; the port
-does not depend on orbax) raises ``ValueError``. ``--packed`` is accepted and
-ignored: the port runs unpacked, the same math.
+An orbax checkpoint directory (the JAX Trainer's format; the port does not
+depend on orbax) raises ``ValueError`` naming the converter,
+``scripts/orbax_to_pth.py``, which writes it as a ``.pth.tar`` where the JAX
+package is installed. ``--packed`` is accepted and ignored: the port runs
+unpacked, the same math.
 """
 
 from __future__ import annotations
@@ -52,7 +54,9 @@ def build_networks(model_file: str, hparams: dict, n_classes: int = 1,
         raise ValueError(
             f"{model_file} is a directory: an orbax checkpoint of the JAX Trainer. "
             "The port reads .pth.tar files only (orbax is not a dependency of the "
-            "port); convert it with the JAX package first")
+            "port); convert it where the JAX package is installed, with the same "
+            "--algorithm and hparams it was trained with: python "
+            f"scripts/orbax_to_pth.py --model-file {model_file} --out <file.pth.tar>")
     cfg = ModelConfig.from_hparams(hparams, n_classes=n_classes)
     state = init_ensemble(cfg, device=device, algorithm=algorithm)
     counts = load_reference_checkpoint(model_file, state, strict=strict)

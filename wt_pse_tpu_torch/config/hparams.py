@@ -1,6 +1,7 @@
 """Hyperparameter defaults of the two algorithms, ``WT_PSE`` and
-``Unet_nips2023_joint_shape_regularization`` — the port's own copy of
-``wt_pse_tpu/config/hparams.py:17-124`` (``default_hparams``).
+``Unet_nips2023_joint_shape_regularization``, and their seeded random-search
+draws — the port's own copy of ``wt_pse_tpu/config/hparams.py``
+(``default_hparams``, ``random_hparams``).
 
 The full default surface is kept so configs written for the JAX package load
 unchanged. ``compute_dtype`` is ``None``/``"float32"`` (f32) or
@@ -14,6 +15,8 @@ but ignores:
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 _COMMON = {
     "eval_steps": 400,
@@ -108,4 +111,72 @@ def default_hparams(algorithm: str = "WT_PSE", dataset: str = "fundus") -> dict:
         raise ValueError(f"unknown algorithm {algorithm!r}; have {ALGORITHMS}")
     hp = dict(_COMMON)
     hp.update(_WT_PSE if algorithm == "WT_PSE" else _JOINT)
+    return hp
+
+
+def random_hparams(algorithm: str, dataset: str = "fundus", seed: int = 0) -> dict:
+    """Random-search hparams (the reference's ``hparams_registry.random_hparams``):
+    the defaults, with every drawn key replaced by a ``np.random.RandomState(seed)``
+    draw, in the registry's order and with its expressions, so a seeded draw
+    equals the JAX package's (``wt_pse_tpu/config/hparams.py:127-207``) key
+    for key. A constant ``(x, x)`` entry of the registry consumes no draw, and
+    the random side is not "defaults plus overrides": the joint variant's
+    ``global_metric`` is ``True`` and ``posterior_transform_follow_prior``
+    ``True`` (hparams_registry.py:120,146)."""
+    rs = np.random.RandomState(seed)
+    choice = rs.choice
+    hp = default_hparams(algorithm, dataset)
+
+    # the common block (hparams_registry.py:14-24), fundus is not SMALL_IMAGES (32-47)
+    hp["eval_steps"] = float(choice([1, 0.1, 0.01]))
+    hp["training_fraction"] = float(choice([1, 0.1, 0.01]))
+    hp["resnet_dropout"] = float(choice([0.0, 0.1, 0.5]))
+    hp["lr_gm"] = float(10 ** rs.uniform(-5, -3.5))
+    hp["lr_sc"] = float(10 ** rs.uniform(-5, -3.5))
+    hp["batch_size"] = int(2 ** rs.uniform(3, 5.5))
+    hp["weight_decay"] = float(10 ** rs.uniform(-6, -2))
+
+    shared = [  # lines 75-93 for WT_PSE; the tail of 97-146 for the joint variant
+        ("eval_steps", float, [1, 0.1, 0.01]),
+        ("shape_attention_coeffient", float, [1, 0.1, 0.01]),
+        ("shape_start", float, [1, 0.1, 0.01]),
+        ("shape_weight", float, [1, 0.1, 0.25, 0.75]),
+        ("instance_wt_gm", float, [1, 0.1, 0.25, 0.75]),
+        ("domain_wt_gm", float, [1, 0.1, 0.25, 0.75]),
+        ("instance_wt_sc", float, [1, 0.1, 0.25, 0.75]),
+        ("domain_wt_sc", float, [1, 0.1, 0.25, 0.75]),
+        ("multi-turn", float, [1, 0.1, 0.25, 0.75]),
+        ("sg_type", str, ["oc", "od"]),
+        ("whitening_type", str, ["cca", "instance_wt"]),
+        ("wt_type_inference", str, ["instance_wt", "instance_wt"]),
+    ]
+    if algorithm == "WT_PSE":
+        draws = shared[:1] + [("margin", float, [1, 0.1, 0.01])] + shared[1:]
+    else:
+        draws = [
+            ("num_mc", int, [1, 1, 1]),
+            ("num_monte_carlo", int, [20, 30, 40, 50]),
+            ("moped_delta_factor", float, [0.1, 0.2, 0.3]),
+            ("bnn_rho_init", float, [-1, -2, -3, -4, -5]),
+            ("kl_weight", float, [1, 0.1, 0.5, 0.25, 0.75]),
+            ("ce_weight", float, [1, 0.1, 0.5, 0.25, 0.75]),
+            ("global_weight", float, [1, 0.1, 0.25, 0.75]),
+            ("p_weight1", float, [1, 0.1, 0.25, 0.75]),
+            ("classifier", str, ["SGP", "NO"]),
+            ("contrastive_type", str, ["contrastive", "triplet", "contrastive_plain"]),
+            ("contrastive_type_global", str, ["contrastive", "triplet", "contrastive_plain"]),
+            ("margin", float, [1, 0.1, 0.01]),
+            ("pairs_number", float, [1, 0.1, 0.01]),
+            ("metric_dimension", float, [1, 10, 0.1]),
+            ("level2_gamma", float, [1, 10, 0.1]),
+            ("level1_gamma_global", float, [1, 0.01, 0.1]),
+            ("level1_gamma", float, [1, 0.1, 10]),
+            *shared,
+            ("CCA_type", str, ["cca_all", "caa_random_2"]),
+            ("CCA_transform_type", str, ["ZCA", "CCA"]),
+        ]
+        hp["global_metric"] = True  # ([True], True): constant, no draw
+        hp["posterior_transform_follow_prior"] = True  # (False, True), no draw
+    for key, cast, opts in draws:
+        hp[key] = cast(choice(opts))
     return hp

@@ -40,10 +40,28 @@ JAX rounds twice. Per op:
 - ReLU, max-pool, concat (the skip cast to the decoder's type), sigmoid and
   the attention fusion run in the compute dtype; ``ConvStack1x1`` and
   ``AttentionLayer`` are convs in it (``layers.py:375-404``).
+
+Row sharding (:func:`row_shard`, entered by
+``parallel/spatial.py::spatial_sharded``): inside the context each rank holds
+a slab of an image's rows, and the two layers that read across rows take one
+row from each neighbouring slab (``parallel/collectives.py::halo_rows``)
+where JAX's GSPMD inserts its halo exchanges:
+
+- a 3x3 conv pads its rows with the neighbours' rows (zero rows at the
+  image's true top and bottom, its padding) and pads only its columns;
+- the 2x upsample resizes the slab with a neighbour row on each side (the
+  edge row repeated at the true edges, the resize's clamp) and drops the two
+  output rows each side that those rows make.
+
+1x1 convs, BatchNorm in eval mode, ReLU, sigmoid and concat are pointwise,
+and a 2x2 max-pool needs nothing while every slab starts on an even row at
+every level (``spatial_sharded`` requires H % (16 N) == 0). Outside the
+context every layer runs as it did without it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -51,7 +69,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from wt_pse_tpu_torch.parallel.collectives import all_reduce_sum
+from wt_pse_tpu_torch.parallel.collectives import all_reduce_sum, halo_rows
+
+# the mesh whose ranks hold the slabs of an image's rows inside row_shard, or None
+_ROW_MESH = None
+
+
+@contextlib.contextmanager
+def row_shard(mesh):
+    """Inside the context, this rank's activations are its slab of rows of
+    images split along H over ``mesh``'s ranks in rank order, and the 3x3
+    convs and the upsample exchange rows with the neighbouring ranks (module
+    docstring). Every rank of the mesh must run the same layers in the
+    context: each exchange is a collective."""
+    global _ROW_MESH
+    prev, _ROW_MESH = _ROW_MESH, mesh
+    try:
+        yield
+    finally:
+        _ROW_MESH = prev
+
 
 # flax.linen.initializers.lecun_normal: truncated normal on [-2, 2] standard
 # deviations, rescaled by this constant so the variance is 1/fan_in
@@ -69,10 +106,14 @@ class Conv2d(nn.Conv2d):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        padding = self.padding
+        if _ROW_MESH is not None and padding[0]:  # a slab: the neighbours' rows
+            x = halo_rows(x, _ROW_MESH, "zero")
+            padding = (0, padding[1])
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x)
-        return (F.conv2d(x.to(dt), self.weight.to(dt), None, 1, self.padding)
+            return F.conv2d(x, self.weight, self.bias, 1, padding)
+        return (F.conv2d(x.to(dt), self.weight.to(dt), None, 1, padding)
                 + self.bias.to(dt)[:, None, None])
 
 
@@ -131,7 +172,15 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     rounding to bf16, as the JAX package's bf16 path does (its 0.25 / 0.75
     weights are exact in bf16). An f64 ``x`` is resized in f32 and returned
     f64, as the JAX package's ``resize_bilinear`` computes in f32 whatever
-    its input (``layers.py:227-231``), so f64 nets round there as JAX's do."""
+    its input (``layers.py:227-231``), so f64 nets round there as JAX's do.
+    Inside :func:`row_shard`, a slab is resized with a neighbour row on each
+    side and the two output rows each side that they make are dropped."""
+    if _ROW_MESH is not None:
+        return _upsample2x(halo_rows(x, _ROW_MESH, "replicate"))[:, :, 2:-2]
+    return _upsample2x(x)
+
+
+def _upsample2x(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         x = F.interpolate(x, scale_factor=(2, 1), mode="bilinear", align_corners=False)
         return F.interpolate(x, scale_factor=(1, 2), mode="bilinear", align_corners=False)
@@ -255,3 +304,20 @@ class AttentionLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         logits = self.layer1(x)
         return torch.sigmoid(logits), logits
+
+
+class InstanceWhitening(nn.Module):
+    """Parameter-free instance standardisation (``wt_pse_tpu/models/layers.py:407-420``,
+    ``nn.InstanceNorm2d(dim, affine=False)``): each sample's channels take
+    their mean and biased variance over H and W, then ``(x - mean) *
+    rsqrt(var + eps)``. The reference defines it inside DeepWT and leaves it
+    out of the datapath; so does the port."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean((2, 3), keepdim=True)
+        var = x.var((2, 3), correction=0, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + self.eps)

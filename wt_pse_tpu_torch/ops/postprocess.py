@@ -1,6 +1,6 @@
 """Prediction post-processing: sigmoid -> threshold -> largest connected
 component -> binary fill-holes (the port's own copy of the scipy path of
-``wt_pse_tpu/ops/postprocess.py:35-61``).
+``wt_pse_tpu/ops/postprocess.py:35-74``).
 
 Connected components are 8-connected (skimage ``label``, as the reference's
 ``get_largest_fillhole`` uses); of equal largest areas the first label wins,
@@ -54,4 +54,15 @@ def postprocess_logits(logits_chw: np.ndarray, threshold: float = 0.75,
     out[0] = largest_component_fill_holes(out[0], backend)
     if label is None:
         out[1] = largest_component_fill_holes(out[1], backend)
+    return out
+
+
+def postprocess_probs_drishti(probs_chw: np.ndarray, backend: str = "auto") -> np.ndarray:
+    """The reference's 'D' (Drishti-GS) branch of ``utils.postprocessing``
+    (utils.py:279-297): the inputs are already probabilities; the cup is
+    channel 0 > 0.1, the disc channel 1 > 0.5, each cleaned by LCC + fill."""
+    probs = np.asarray(probs_chw)
+    out = np.copy(probs)
+    out[0] = largest_component_fill_holes((probs[0] > 0.1).astype(np.uint8), backend)
+    out[1] = largest_component_fill_holes((probs[1] > 0.5).astype(np.uint8), backend)
     return out

@@ -16,6 +16,10 @@ rank's cotangent back to the rank that owns the input, and the gradient
 mean that follows (:func:`mean_grads_`) divides by N. Together they give the
 gradient of the mean of the ranks' losses, which is the single-device
 gradient of the global batch.
+
+:func:`halo_rows` is the row exchange of H-axis sharded inference
+(``parallel/spatial.py::spatial_sharded``): each rank's slab of an image
+takes one row from each neighbouring rank's slab.
 """
 
 from __future__ import annotations
@@ -55,6 +59,45 @@ def all_gather_rows(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     rank's slot, so each sum adds its one value to zeros: exact."""
     slots = [x if r == mesh.rank else torch.zeros_like(x) for r in range(mesh.size)]
     return all_reduce_sum(torch.stack(slots), mesh)
+
+
+def halo_rows(x: torch.Tensor, mesh: DataMesh, fill: str) -> torch.Tensor:
+    """(B, C, h + 2, W): this rank's slab ``x`` (B, C, h, W) of an image whose
+    rows are split over the mesh in rank order, with the last row of the rank
+    above on top and the first row of the rank below underneath. Where there
+    is no neighbour, at the image's true top and bottom, the added row is
+    zero (``fill='zero'``, a conv's padding) or a copy of the edge row
+    (``fill='replicate'``, the clamp of a bilinear resize).
+
+    One all-reduce: each rank writes its first and last row into its own
+    slot of a zero buffer, so each sum adds one value to zeros (exact), and
+    reads its neighbours' slots. The buffer is at least f32 (gloo reduces
+    no bf16 on every build; the widening is exact). Each exchange over a
+    process group adds one to ``halo_rows.exchanges``."""
+    if fill not in ("zero", "replicate"):
+        raise ValueError(f"fill={fill!r}: 'zero' or 'replicate'")
+    first, last = x[:, :, :1], x[:, :, -1:]
+    above = below = None
+    if mesh.group is not None:
+        slots = x.new_zeros((mesh.size, 2) + first.shape,
+                            dtype=torch.promote_types(x.dtype, torch.float32))
+        slots[mesh.rank, 0] = first
+        slots[mesh.rank, 1] = last
+        _sum_(slots, mesh)
+        halo_rows.exchanges += 1
+        slots = slots.to(x.dtype)
+        if mesh.rank > 0:
+            above = slots[mesh.rank - 1, 1]
+        if mesh.rank < mesh.size - 1:
+            below = slots[mesh.rank + 1, 0]
+    if above is None:
+        above = torch.zeros_like(first) if fill == "zero" else first
+    if below is None:
+        below = torch.zeros_like(last) if fill == "zero" else last
+    return torch.cat([above, x, below], dim=2)
+
+
+halo_rows.exchanges = 0
 
 
 def mean_grads_(params, mesh: DataMesh) -> None:

@@ -64,6 +64,12 @@ class RunLogger:
                 if k not in ("step", "t"):
                     self.tb.add_scalar(k, v, step)
 
+    def step_scalars(self, iteration: int, payload: dict):
+        """One iteration's train scalars (``Trainer.py:957-969`` logs every loss
+        every iteration): the line :meth:`step_scalars_many` writes for one
+        record."""
+        self.step_scalars_many([(iteration, payload)])
+
     def step_scalars_many(self, records):
         """Per-iteration train scalars, one ``{"kind": "step"}`` JSON line each,
         written in one burst an epoch; ``records`` is an iterable of
