@@ -37,17 +37,24 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    time of a wrapper call;
 6. the f32 trainer: ``Trainer`` at full width (256x256,
    batch 9 = 3 domains x 3 of 12 images each, f32) on numpy-made pools (no
-   PIL, no YAML, no file read) trains 5 epochs of 4 steps, with the launch
-   counts set to 0 just before and read just after (8 of each kernel a step),
+   PIL, no YAML, no file read), under its default driver on the card, the
+   graph (the sample + step captured once as a CUDA graph and replayed once a
+   step; its capture time and memory pool), trains 5 epochs of 4 steps, with
+   the launch counts set to 0 just before and read just after (8 of each
+   kernel a replayed step),
    and validates after epochs 3 and 4 on 8 images whose labels are at two
    native resolutions (512x512 and 640x640). It checks finite losses, the
    log rows, the 7 finite validation metrics, best.json and a checkpoint; a
    checkpoint of the trained nets reloaded into fresh nets (strictly, and by
    the reference's filtered partial load: 336/158/336/158 leaves) must
    predict bitwise equal on the card; a resume from the newest checkpoint
-   must start at its epoch with the best objective restored and train one
-   more epoch, which is traced with ``torch.profiler`` (the card's busy share
-   of the epoch, the device time of sampling and augmentation). It prints
+   must start at its epoch with the best objective restored (into the
+   capturable Adams, in place) and train one more epoch, which is traced
+   with ``torch.profiler`` (the card's busy share of the epoch; the device
+   time of sampling and augmentation only under the loop, whose range the
+   graph does not replay); the same checkpoint resumed under the loop
+   (``scan_epochs=False``) must hold the same step count, weights and Adam
+   state bitwise. It prints
    the epoch times, steps a second, each validation's time split into the
    predict on the card, the host upsample and the host scoring, the peak
    device memory, and whether PIL and PyYAML import on this machine; the
@@ -123,7 +130,24 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    pixels; the elastic transform's and the rotation's images at class conv,
    the elastic transform's blurred field at ``f32_reduce``) and each op's
    median time; (c) ``InstanceWhitening`` on the card
-   against the CPU at ``f32_reduce``.
+   against the CPU at ``f32_reduce``;
+12. the one-program epoch (``train/graph.py``), for WT_PSE f32, WT_PSE bf16
+   and the joint variant at full width on phase 6's pools: a graphed
+   ``Trainer`` (the default) and an eager-loop one (``scan_epochs=False``)
+   from one seed, with ``run_meta.json`` naming each driver; one epoch of
+   both, step by step, every replayed step's batch bitwise equal to the
+   loop's and the first step's metrics within the JAX package's
+   scan-vs-loop bounds (rtol 1e-4, atol 1e-6; in bf16 the two metrics read
+   through a teacher after its update, ``POST_UPDATE``, at class bf16);
+   3 epochs of each through ``train()`` with the launch counts set to 0
+   just before and read just after (8 of each kernel of the dtype a
+   replayed step; none for the joint variant at its default hparams); one
+   more epoch of each traced (the card's busy share), the epoch and host
+   enqueue times, the capture time, the graph's memory pool and the peak
+   memory. For f32 and bf16 also one step graphed against the same step run
+   eagerly with the same capturable Adam (fixed batch, injected draws):
+   metrics within the same bounds, and the largest parameter difference
+   beside the one between two eager runs.
 
 The card's name and power limit follow the build line. The line before the
 last is a JSON ``kernels`` record of four rows, the f32 and the bf16 variant
@@ -196,6 +220,18 @@ SPATIAL_OD_GAIN = 20.0
 # other way changes the OC logits this far around it
 OC_REACH = 170
 EXTRAS_HW = 256            # phase 11 (b): the transform library's image size
+GRAPH_EPOCHS = 3           # phase 12: epochs of each driver a variant
+# the JAX package's scan-vs-loop bounds of one step's metrics
+# (tests/test_trainer_e2e.py:137-138)
+SCAN_RTOL, SCAN_ATOL = 1e-4, 1e-6
+# the metrics a step reads through a teacher after that teacher's Adam update.
+# An update that differs by an ulp (the capturable Adam's f32 bias
+# correction), or by 2 lr where a gradient at noise flips the sign of Adam's
+# first step (the upsample's backward adds with atomics), moves the bf16
+# teacher's roundings: two eager runs of one bf16 step already differ there.
+# In bf16 they are held at class bf16; every other metric, and all in f32, at
+# the scan-vs-loop bounds
+POST_UPDATE = ("loss_kd", "loss_kd_oc")
 
 
 def log(msg: str) -> None:
@@ -567,6 +603,8 @@ def trainer_path(cc, dev, tmp: str) -> dict:
     run = os.path.join(tmp, "run")
     torch.cuda.reset_peak_memory_stats(dev)
     trainer = Trainer(hp, train, val, run, max_epoch=EPOCHS, **kw)
+    if not trainer.scan_epochs:
+        raise SystemExit("phase 6: the default Trainer on the card is not the graph driver")
     torch.cuda.synchronize()
     zero_counts(cc)
     t0 = time.perf_counter()
@@ -577,7 +615,9 @@ def trainer_path(cc, dev, tmp: str) -> dict:
     et = trainer.epoch_seconds
     steady = statistics.median(et[1:])
     log(f"trainer ({EPOCHS} epochs x {trainer.iter_per_epoch} steps, 256x256, batch 9 = "
-        f"3x3, f32): {wall:.2f} s in train(); epochs " +
+        f"3x3, f32, the graph driver, captured in {trainer._graph.capture_seconds:.2f} s, "
+        f"its pool {trainer._graph.pool_bytes / 2 ** 30:.2f} GiB): {wall:.2f} s in train(); "
+        f"epochs " +
         ", ".join(f"{t:.3f}" for t in et) + f" s; first {et[0]:.3f} s, steady median "
         f"{steady:.3f} s = {trainer.iter_per_epoch / steady:.3f} steps/s; the host "
         f"enqueued the steps in " + ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) +
@@ -648,6 +688,22 @@ def trainer_path(cc, dev, tmp: str) -> dict:
     if resumed.epoch != n or resumed.best["objective"] != best["objective"]:
         raise SystemExit(f"resume from {ckpts[-1]} starts at epoch {resumed.epoch} with "
                          f"best {resumed.best}, not epoch {n} with {best}")
+    # the graphed run's checkpoint resumes under the loop too: the same step
+    # count, weights and Adam state as the graph driver restored in place
+    loop = Trainer(hp, train, val, os.path.join(tmp, "resumed_loop"), max_epoch=n + 1,
+                   stop_epoch=n, resume=ckpts[-1], scan_epochs=False, **kw)
+    same = loop.state.step == resumed.state.step and all(
+        torch.equal(a.cpu(), b.cpu()) for x, y in zip(loop.state.net_states(),
+                                                      resumed.state.net_states())
+        for a, b in zip(list(x.net.state_dict().values()) +
+                        [v for st in x.opt.state.values() for v in st.values()],
+                        list(y.net.state_dict().values()) +
+                        [v for st in y.opt.state.values() for v in st.values()]))
+    log(f"the checkpoint resumed under the loop: step {loop.state.step}, weights and Adam "
+        f"state bitwise equal to the graph driver's restore: {same}")
+    if not same:
+        raise SystemExit("the graphed run's checkpoint resumes otherwise under the loop")
+    del loop
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         resumed.train()
@@ -657,17 +713,24 @@ def trainer_path(cc, dev, tmp: str) -> dict:
     if len(rows) != 1 or rows[0].split(",")[0] != str(n):
         raise SystemExit(f"the resumed run logged {rows}, not one row of epoch {n}")
     busy, window, _, _ = device_time(prof)
-    ranges = [e for e in prof.events() if e.name == BATCH_RANGE
-              and e.device_type != torch.autograd.DeviceType.CUDA]
-    batch_us = sum(e.device_time_total for e in ranges)
-    batch_host_us = sum(e.cpu_time_total for e in ranges)
-    log(f"resumed at epoch {n} (best objective {best['objective']:.6f} restored), one "
-        f"more epoch traced: {resumed.epoch_seconds[0]:.3f} s traced; device busy "
+    if resumed.scan_epochs:
+        # the range is host-side: a graph records it once, at capture
+        batch = "sampling and augmentation inside the replayed graph (no range: not measured)"
+    else:
+        ranges = [e for e in prof.events() if e.name == BATCH_RANGE
+                  and e.device_type != torch.autograd.DeviceType.CUDA]
+        batch_us = sum(e.device_time_total for e in ranges)
+        batch_host_us = sum(e.cpu_time_total for e in ranges)
+        batch = (f"sampling and augmentation {batch_us / 1e3:.3f} ms of device time "
+                 f"({batch_us / busy:.2%} of busy) and {batch_host_us / 1e3:.3f} ms of host "
+                 f"time ({batch_host_us / 1e6 / resumed.epoch_seconds[0]:.2%} of the traced "
+                 "epoch)")
+    log(f"resumed at epoch {n} (best objective {best['objective']:.6f} restored, driver "
+        f"{'graph' if resumed.scan_epochs else 'eager'}), one more epoch traced: "
+        f"{resumed.epoch_seconds[0]:.3f} s traced; device busy "
         f"{busy / 1e6:.3f} s = {busy / 1e6 / steady:.1%} of the untraced steady "
         f"{steady:.3f} s epoch, {busy / window:.1%} of the traced first-to-last-kernel "
-        f"window; sampling and augmentation {batch_us / 1e3:.3f} ms of device time "
-        f"({batch_us / busy:.2%} of busy) and {batch_host_us / 1e3:.3f} ms of host time "
-        f"({batch_host_us / 1e6 / resumed.epoch_seconds[0]:.2%} of the traced epoch)")
+        f"window; {batch}")
     host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
                   key=lambda e: -e.self_cpu_time_total)
     log("host time of the traced epoch by op (self, top 12): " + "; ".join(
@@ -1684,6 +1747,199 @@ def spatial_path(cc, dev, tmp: str) -> dict:
     return out
 
 
+def metric_errors(got: dict, want: dict, bf16: bool) -> dict:
+    """One step's metrics (one-element tensors) against another's: the worst
+    |got - want| / (atol + rtol |want|) at each metric's bound (the
+    scan-vs-loop bound; class bf16 for ``POST_UPDATE`` in bf16) and its
+    metric, and the worst of ``POST_UPDATE`` at the scan-vs-loop bound."""
+    if set(got) != set(want):
+        raise SystemExit(f"the drivers report other metrics: {sorted(got)} / {sorted(want)}")
+    held, scan = {}, {}
+    for k, v in want.items():
+        a, b = float(got[k].reshape(-1)[0]), float(v.reshape(-1)[0])
+        scan[k] = abs(a - b) / (SCAN_ATOL + SCAN_RTOL * abs(b))
+        rtol, atol = BF16_TOL if bf16 and k in POST_UPDATE else (SCAN_RTOL, SCAN_ATOL)
+        held[k] = abs(a - b) / (atol + rtol * abs(b))
+    worst = max(held, key=held.get)
+    kd = [scan[k] for k in POST_UPDATE if k in scan]
+    return {"err_of_bound": held[worst], "worst_metric": worst,
+            "kd_err_of_scan_bound": max(kd) if kd else None}
+
+
+def max_param_diff(a, b) -> float:
+    """The largest |a - b| over the parameters of two training states."""
+    return max(float((p - q).abs().max()) for x, y in zip(a.net_states(), b.net_states())
+               for p, q in zip(x.net.parameters(), y.net.parameters()))
+
+
+def graph_vs_eager_step(dev, hp: dict, algorithm: str, hw: int = 256) -> dict:
+    """One step from one seeded state (batch 9 = 3x3 at ``hw``, a fixed
+    batch and injected draws through the static buffers) graphed against the
+    same step run eagerly, both with the capturable Adam, and a second eager
+    run beside the first. Returns the worst metric error of graph against
+    eager (1.0 = the scan-vs-loop bound), its metric, the largest parameter
+    difference of each pair, the capture's launches a step and seconds."""
+    from wt_pse_tpu_torch.models.common import ModelConfig
+    from wt_pse_tpu_torch.train.graph import GraphedStep
+    from wt_pse_tpu_torch.train.state import init_ensemble
+    from wt_pse_tpu_torch.train.step import EPS_KEYS, StepConfig, make_train_step
+
+    cfg = ModelConfig.from_hparams(hp)
+    step = make_train_step(StepConfig(hp, 3, 3, distill=algorithm != JOINT), device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(3, 3, hw, 4).items()}
+    r = np.random.RandomState(5)
+    eps = {k: torch.from_numpy(r.randn(9, 1, hw, hw).astype(np.float32)).to(dev)
+           for k in EPS_KEYS}
+    bf16 = hp.get("compute_dtype") == "bfloat16"
+    runs = []
+    for _ in range(3):  # graph, eager, eager
+        state = init_ensemble(cfg, device=dev, generator=torch.Generator().manual_seed(0),
+                              algorithm=algorithm, capturable=True)
+        gs = GraphedStep(state, step, batch, capacity=1, eps_keys=EPS_KEYS)
+        for k, v in batch.items():
+            gs.batch[k].copy_(v)
+        for k, v in eps.items():
+            gs.eps[k].copy_(v)
+        runs.append(gs)
+    graph, eager, again = runs
+    graph.capture()
+    got = graph.replay(1)
+    for gs in (eager, again):
+        gs.body()
+    torch.cuda.synchronize()
+    return {"graph_vs_eager": metric_errors(got, eager.read(1), bf16),
+            "eager_vs_eager": metric_errors(again.read(1), eager.read(1), bf16),
+            "param_diff_graph_eager": max_param_diff(graph.state, eager.state),
+            "param_diff_eager_eager": max_param_diff(eager.state, again.state),
+            "launches_a_step": {f"{n}.{a}": c for (n, a), c in
+                                graph.launches_per_step.items() if c},
+            "capture_s": graph.capture_seconds}
+
+
+def graph_vs_loop_epoch(graph_trainer, loop_trainer) -> dict:
+    """One epoch of a graphed and an eager-loop Trainer from the same seed,
+    step by step: every step's batch bitwise equal between the two, and the
+    first step's metrics against the scan-vs-loop bound."""
+    for t in (graph_trainer, loop_trainer):
+        t._gen.manual_seed(123)
+    same, first = [], None
+    bf16 = graph_trainer.hparams.get("compute_dtype") == "bfloat16"
+    for it in range(graph_trainer.iter_per_epoch):
+        mg, ml = graph_trainer.epoch_step(it, 1), loop_trainer.epoch_step(it, 1)
+        same.append(all(torch.equal(graph_trainer.last_batch[k], v)
+                        for k, v in loop_trainer.last_batch.items()))
+        if it == 0:
+            first = metric_errors(mg, ml, bf16)
+    return {"batches_bitwise_equal": same, "first_step": first}
+
+
+def profile_epoch(trainer) -> dict:
+    """One epoch of ``trainer``'s driver (``epoch_step``) traced with
+    torch.profiler: the card's busy share of the traced wall time, and the
+    device events a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.epoch_step(0, trainer.iter_per_epoch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, window, _, calls = device_time(prof)
+    return {"wall_s": wall, "busy_s": busy / 1e6, "busy_share": busy / 1e6 / wall,
+            "busy_of_window": busy / window,
+            "events_a_step": sum(calls.values()) / trainer.iter_per_epoch}
+
+
+def graph_path(cc, dev, tmp: str, train, val) -> dict:
+    """Phase 12: the one-program epoch. For WT_PSE f32, WT_PSE bf16 and the
+    joint variant at full width on ``train``'s pools: a graphed ``Trainer``
+    (the default) and an eager-loop one (``scan_epochs=False``) from one
+    seed; one epoch of both step by step (every batch bitwise equal, the
+    first step's metrics within the scan-vs-loop bound); ``GRAPH_EPOCHS``
+    epochs of each through ``train()``, with the launch counts set to 0 just
+    before and read just after (8 of each kernel of the dtype a replayed
+    step; none for the joint variant at its default hparams); one epoch of
+    each traced (the card's busy share); the capture time and the peak
+    memory. For f32 and bf16 also one step graphed against the same step
+    eager with the same capturable Adam (metrics within the bound, the
+    largest parameter difference beside two eager runs')."""
+    from wt_pse_tpu_torch.config import default_hparams
+    from wt_pse_tpu_torch.train.trainer import Trainer
+
+    variants = (("WT_PSE f32", default_hparams("WT_PSE"), "WT_PSE", (8, 0)),
+                ("WT_PSE bf16", dict(default_hparams("WT_PSE"), compute_dtype="bfloat16"),
+                 "WT_PSE", (0, 8)),
+                ("joint", default_hparams(JOINT), JOINT, (0, 0)))
+    out = {}
+    for name, hp, algorithm, (n_f32, n_bf16) in variants:
+        kw = dict(batch_size=9, interval_validate=10 ** 6, label="OD", seed=1,
+                  val_visualization=False, device=dev, algorithm=algorithm,
+                  max_epoch=GRAPH_EPOCHS)
+        res = {}
+        built = {}
+        for driver, scan in (("graph", None), ("loop", False)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            t = Trainer(hp, train, val, os.path.join(tmp, f"graph_{name}_{driver}"),
+                        scan_epochs=scan, **kw)
+            built[driver] = time.perf_counter() - t0
+            with open(os.path.join(t.out, "run_meta.json")) as f:
+                meta = json.load(f)
+            if meta["driver"] != ("graph" if scan is None else "eager"):
+                raise SystemExit(f"phase 12 {name}: run_meta records driver {meta['driver']}")
+            res[driver] = t
+        g, loop = res["graph"], res["loop"]
+        steps = GRAPH_EPOCHS * g.iter_per_epoch
+        check = graph_vs_loop_epoch(g, loop)
+        rec = {"capture_s": g._graph.capture_seconds,
+               "graph_pool_gib": g._graph.pool_bytes / 2 ** 30,
+               "construct_s": built, "vs_loop": check}
+        for driver, t in res.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_counts(cc)
+            t0 = time.perf_counter()
+            t.train()
+            launches = read_counts(cc)
+            expect_counts(launches, n_f32 * steps, n_bf16 * steps, f"phase 12 {name} {driver}")
+            rec[driver] = {"train_s": time.perf_counter() - t0,
+                           "epoch_s": t.epoch_seconds, "enqueue_s": t.enqueue_seconds,
+                           "launches": launches,
+                           "peak_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                           "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2 ** 30,
+                           "profile": profile_epoch(t)}
+        if algorithm == "WT_PSE":
+            t0 = time.perf_counter()
+            rec["vs_eager_step"] = graph_vs_eager_step(dev, hp, algorithm)
+            rec["vs_eager_step"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 12 {name} (256x256, batch 9 = 3x3, {GRAPH_EPOCHS} epochs x "
+            f"{g.iter_per_epoch} steps a driver): {json.dumps(rec)}")
+        steady = {d: statistics.median(rec[d]["epoch_s"][1:]) for d in ("graph", "loop")}
+        log(f"phase 12 {name}: steady epoch graph {steady['graph']:.4f} s, loop "
+            f"{steady['loop']:.4f} s ({steady['graph'] / steady['loop']:.3f}x); card busy "
+            f"{rec['graph']['profile']['busy_share']:.1%} of a graphed epoch, "
+            f"{rec['loop']['profile']['busy_share']:.1%} of a loop epoch; capture "
+            f"{rec['capture_s']:.2f} s")
+        if not all(check["batches_bitwise_equal"]) or check["first_step"]["err_of_bound"] > 1.0:
+            raise SystemExit(f"phase 12 {name}: the graph and the loop disagree: {check}")
+        if "vs_eager_step" in rec and \
+                rec["vs_eager_step"]["graph_vs_eager"]["err_of_bound"] > 1.0:
+            raise SystemExit(f"phase 12 {name}: the graphed step disagrees with the eager "
+                             f"step: {rec['vs_eager_step']}")
+        for t in (g, loop):
+            with open(os.path.join(t.out, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f if "loss_seg" in line]
+            if len(recs) != GRAPH_EPOCHS or not all(
+                    math.isfinite(v) for r in recs for k, v in r.items() if k != "step"):
+                raise SystemExit(f"phase 12 {name}: expected {GRAPH_EPOCHS} finite epoch "
+                                 f"records, got {recs}")
+        out[name] = rec
+        del g, loop, res
+    return out
+
+
 def time_in_turns(fns, flush, iters: int = 30) -> list[float]:
     """Median ms of one call of each of ``fns``, with ``flush()`` (which evicts
     the L2) before every call, the functions taken in turns in one loop."""
@@ -1835,17 +2091,24 @@ def main() -> int:
                         "--format=csv,noheader"], capture_output=True, text=True,
                        check=True, timeout=60).stdout.strip().splitlines()[0])
 
-    errs = check_kernels(cc, dev)
-    check_against_cpu(dev)
-    f32_step_ms = main_path(cc, dev)
-    rows = time_kernels(cc, dev, errs)
+    def phase(n: int, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {n} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    errs = phase(2, check_kernels, cc, dev)
+    phase(3, check_against_cpu, dev)
+    f32_step_ms = phase(4, main_path, cc, dev)
+    rows = phase(5, time_kernels, cc, dev, errs)
     with tempfile.TemporaryDirectory() as tmp:
-        p6 = trainer_path(cc, dev, tmp)
-        eval_path(cc, dev, tmp, p6)
-        bf16_launches = bf16_path(cc, dev, tmp, f32_step_ms, p6)
-        joint_path(cc, dev, tmp, p6)
-        dp_path(tmp, p6)
-        spatial_path(cc, dev, tmp)
+        p6 = phase(6, trainer_path, cc, dev, tmp)
+        phase(7, eval_path, cc, dev, tmp, p6)
+        bf16_launches = phase(8, bf16_path, cc, dev, tmp, f32_step_ms, p6)
+        phase(9, joint_path, cc, dev, tmp, p6)
+        phase(10, dp_path, tmp, p6)
+        phase(11, spatial_path, cc, dev, tmp)
+        phase(12, graph_path, cc, dev, tmp, p6["train"], p6["val"])
     for row in rows:  # the counts of the trainers' runs: f32 phase 6, bf16 phase 8
         row["launches"] = (bf16_launches if row["name"].endswith("_bf16")
                            else p6["launches"])[row["name"]]

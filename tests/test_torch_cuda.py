@@ -26,7 +26,13 @@ against the card's unsharded predict (OD at class ``conv``, no OD pixel
 flipped, OC at class ``conv``), and the transform library on the card
 against the CPU with the same draws (``chip_smoke.extras_cases``: images at
 ``f32_reduce``, masks exact, the elastic transform and the rotation at
-``conv``).
+``conv``); the graphed epoch (``train/graph.py``): every replayed step trains
+on the eager loop's batch bitwise, one step's metrics within the JAX
+package's scan-vs-loop bounds (rtol 1e-4, atol 1e-6,
+``tests/test_trainer_e2e.py:137-138``) of the default loop's and of the same
+step run eagerly with the same capturable Adam, 8 launches of each kernel a
+replay, a capture that leaves the state and the generator as they were, and
+a capture that meets a host sync raises.
 """
 
 import numpy as np
@@ -469,3 +475,117 @@ def test_the_transform_library_on_the_card_matches_the_cpu(cuda):
         assert res["f32_err_of_bound"] <= 1 and res["conv_err_of_bound"] <= 1, (name, res)
         assert res["exact_diffs"] == 0, (name, res)
         assert res["floor_max"] <= 1 and res["floor_ties"] <= 1e-3 * 64 * 64 * 3, (name, res)
+
+
+def _graph_trainers(cuda, tmp_path, hp=None):
+    """A graphed Trainer (the default on the card) and an eager-loop one from
+    one seed, on 64x64 pools of 3 domains x 4, batch 6 = 3 x 2 (2 steps an
+    epoch)."""
+    r = np.random.RandomState(4)
+    yy, xx = np.mgrid[0:64, 0:64]
+    gray = np.full((64, 64), 255, np.uint8)
+    gray[(yy - 30) ** 2 + (xx - 34) ** 2 < 300] = 128
+    gray[(yy - 30) ** 2 + (xx - 34) ** 2 < 80] = 0
+    doms = [FundusDomain(images=r.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8),
+                         labels=np.stack([gray] * 4)) for _ in range(3)]
+    return [Trainer(hp or default_hparams("WT_PSE"), doms, doms[0],
+                    str(tmp_path / f"run_{scan}"), batch_size=6, max_epoch=2,
+                    val_visualization=False, scan_epochs=scan, device=cuda)
+            for scan in (None, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_epoch_draws_the_loops_batches_and_matches_its_first_step(cuda, tmp_path,
+                                                                         dtype):
+    """From one seed, each replayed step trains on the eager loop's batch,
+    bitwise (the graph reads the run's generator stream), and the first
+    step's metrics are within the scan-vs-loop bounds of the loop's."""
+    import chip_smoke as cs
+
+    graph, loop = _graph_trainers(
+        cuda, tmp_path, dict(default_hparams("WT_PSE"), compute_dtype=dtype))
+    assert graph.scan_epochs and not loop.scan_epochs
+    res = cs.graph_vs_loop_epoch(graph, loop)
+    assert all(res["batches_bitwise_equal"]) and len(res["batches_bitwise_equal"]) == 2, res
+    assert res["first_step"]["err_of_bound"] <= 1.0, res
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_step_matches_the_same_step_eager(cuda, dtype):
+    """One step from one state, graphed against the same step eager with the
+    same capturable Adam: metrics within the scan-vs-loop bounds (in bf16 the
+    two read through a teacher after its update at class bf16:
+    ``chip_smoke.POST_UPDATE``). The bilinear upsample's backward adds with
+    atomics on the card, so two eager runs need not agree bitwise; the
+    largest parameter differences are printed beside each other, with no
+    bound (as the JAX package's scan-vs-loop test compares no parameters)."""
+    import chip_smoke as cs
+
+    res = cs.graph_vs_eager_step(cuda, dict(default_hparams("WT_PSE"), compute_dtype=dtype),
+                                 "WT_PSE", hw=32)
+    print(res)
+    assert res["graph_vs_eager"]["err_of_bound"] <= 1.0, res
+    key = "launches_bf16" if dtype == "bfloat16" else "launches"
+    assert res["launches_a_step"] == {f"covariance_forward.{key}": 8,
+                                      f"covariance_backward.{key}": 8}, res
+
+
+def test_capture_leaves_the_run_as_it_was_and_replays_count_their_launches(cuda, tmp_path):
+    """Capturing the step changes no weight, BatchNorm statistic, Adam state,
+    step count or generator state, and the launch counters move by the
+    warm-up's eager steps alone (8 of each kernel a step), not by the
+    capture; each replay adds 8 launches of each kernel and one step."""
+    from wt_pse_tpu_torch.train.graph import WARMUP_STEPS, GraphedStep
+
+    graph, _ = _graph_trainers(cuda, tmp_path)
+    state, gen = graph.state, graph._gen
+    gen.manual_seed(7)
+
+    def snapshot():
+        torch.cuda.synchronize()
+        tensors = [t.clone() for ns in state.net_states()
+                   for t in list(ns.net.state_dict().values()) +
+                   [v for st in ns.opt.state.values() for v in st.values()]]
+        return tensors, gen.get_state(), state.step, cc.launch_counts()
+
+    before = snapshot()
+    again = GraphedStep(state, graph._train_step, graph.last_batch, capacity=2,
+                        batch_fn=graph._batch_fn, data=graph.data, generator=gen)
+    again.capture()
+    after = snapshot()
+    assert all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+    assert len(before[0]) == len(after[0])
+    assert torch.equal(before[1], after[1]) and before[2] == after[2]
+    warmup = {k: 8 * WARMUP_STEPS if k[1] == "launches" else 0 for k in before[3]}
+    assert {k: after[3][k] - n for k, n in before[3].items()} == warmup
+    metrics = again.replay(2)
+    torch.cuda.synchronize()
+    replays = {k: 16 if k[1] == "launches" else 0 for k in before[3]}
+    assert {k: n - after[3][k] for k, n in cc.launch_counts().items()} == replays
+    assert state.step == before[2] + 2
+    assert all(v.shape == (2,) and torch.isfinite(v).all() for v in metrics.values())
+
+
+def test_a_capture_that_meets_a_host_sync_raises(cuda, tmp_path):
+    """A step that reads a value on the host (``.item()``) cannot be captured:
+    the capture raises, nothing falls back to the eager loop, and the step
+    count and launch counters are left as the capture found them."""
+    from wt_pse_tpu_torch.train.graph import WARMUP_STEPS, GraphedStep
+
+    graph, _ = _graph_trainers(cuda, tmp_path)
+
+    def syncing_step(state, batch, generator=None, eps=None):
+        metrics = graph._train_step(state, batch, generator=generator, eps=eps)
+        if metrics["loss_seg"].item() > 1e9:  # a Python branch on a value
+            metrics["loss_seg"] = metrics["loss_seg"] * 0
+        return metrics
+
+    gs = GraphedStep(graph.state, syncing_step, graph.last_batch, capacity=1,
+                     batch_fn=graph._batch_fn, data=graph.data, generator=graph._gen)
+    step, counts = graph.state.step, cc.launch_counts()
+    with pytest.raises(RuntimeError):
+        gs.capture()
+    assert gs.graph is None and graph.state.step == step
+    # the eager warm-up's launches stay counted, the failed capture's do not
+    warmup = {k: 8 * WARMUP_STEPS if k[1] == "launches" else 0 for k in counts}
+    assert {k: n - counts[k] for k, n in cc.launch_counts().items()} == warmup

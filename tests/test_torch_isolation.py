@@ -51,7 +51,7 @@ def test_importing_every_module_leaves_jax_out():
            "wt_pse_tpu_torch.parallel.collectives", "wt_pse_tpu_torch.parallel.distributed",
            "wt_pse_tpu_torch.parallel.dp", "wt_pse_tpu_torch.parallel.mesh",
            "wt_pse_tpu_torch.parallel.spatial", "wt_pse_tpu_torch.parallel.sweep",
-           "wt_pse_tpu_torch.data.augment_extras"}
+           "wt_pse_tpu_torch.data.augment_extras", "wt_pse_tpu_torch.train.graph"}
     assert "wt_pse_tpu_torch.ops.covariance_cuda" in mods and new <= set(mods)
     assert len(mods) >= 40
     code = ("import sys, importlib\n"

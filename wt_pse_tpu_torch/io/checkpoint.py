@@ -6,7 +6,9 @@ A file holds the reference's four keys ``model`` / ``model_shape`` /
 net's ``state_dict`` (whose names are the reference's), plus ``optim`` (the
 four optimizers' state_dicts) and ``step``, so a run resumes from it. The JAX
 package's ``load_reference_checkpoint`` reads such a file as it reads the
-reference's own.
+reference's own. The optimizers are written in an eager Adam's layout (float
+``lr``) whichever driver trained them, so a file of a graphed run resumes
+under the eager loop and the other way round (``train/state.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import os
 
 import torch
 
-from wt_pse_tpu_torch.train.state import WTPSETrainState
+from wt_pse_tpu_torch.train.state import (WTPSETrainState, adam_state_for_file,
+                                          load_adam_state_)
 
 NET_KEYS = ("model", "model_shape", "model_oc", "model_oc_shape")
 
@@ -31,7 +34,7 @@ def save_ensemble(path: str, state: WTPSETrainState, **extra) -> None:
     nets = _net_states(state)
     payload = {k: {n: t.detach().cpu() for n, t in ns.net.state_dict().items()}
                for k, ns in nets.items()}
-    payload["optim"] = {k: ns.opt.state_dict() for k, ns in nets.items()}
+    payload["optim"] = {k: adam_state_for_file(ns.opt) for k, ns in nets.items()}
     payload["step"] = int(state.step)
     payload.update(extra)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -41,11 +44,12 @@ def save_ensemble(path: str, state: WTPSETrainState, **extra) -> None:
 
 def restore_ensemble(path: str, state: WTPSETrainState) -> WTPSETrainState:
     """Load nets, optimizers and step count from a file :func:`save_ensemble`
-    wrote into ``state``, strictly, in place; returns ``state``."""
+    wrote into ``state``, strictly, in place (a capturable Adam keeps its
+    tensors: ``load_adam_state_``); returns ``state``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     for k, ns in _net_states(state).items():
         ns.net.load_state_dict(ckpt[k], strict=True)
-        ns.opt.load_state_dict(ckpt["optim"][k])  # places the state by its params
+        load_adam_state_(ns.opt, ckpt["optim"][k])  # places the state by its params
     state.step = int(ckpt["step"])
     return state
 

@@ -19,7 +19,10 @@ variant when HW is a multiple of the values in 16 bytes (4 f32, 8 bf16) and
 the pointers are 16-byte aligned, and the same kernel's narrow variant
 otherwise; a bf16 z with C = 16 takes the tensor-core kernels in the 16-byte
 case. Each wrapper counts its launches, a plain integer for each element
-type: ``.launches`` (f32) and ``.launches_bf16``.
+type: ``.launches`` (f32) and ``.launches_bf16``. A host counter moves only
+when the wrapper runs, so a CUDA graph counts its kernels at capture, where
+none runs: ``train/graph.py`` takes the captured launches back out with
+:func:`add_launches` and adds them again for each replay.
 
 The library is built with ``nvcc`` at first use into ``build/kernels/`` at the
 root of the checkout (named by the hash of the source, so an edit rebuilds),
@@ -215,6 +218,22 @@ def covariance_backward(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 covariance_backward.launches = 0
 covariance_backward.launches_bf16 = 0
+
+
+def launch_counts() -> dict[tuple[str, str], int]:
+    """Every launch counter, keyed by (wrapper, counter name)."""
+    return {(fn.__name__, attr): getattr(fn, attr)
+            for fn in (covariance_forward, covariance_backward)
+            for attr in ("launches", "launches_bf16")}
+
+
+def add_launches(counts: dict[tuple[str, str], int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (keyed as :func:`launch_counts`) to the
+    counters: the launches of a captured graph, once for each replay."""
+    wrappers = {fn.__name__: fn for fn in (covariance_forward, covariance_backward)}
+    for (name, attr), n in counts.items():
+        fn = wrappers[name]
+        setattr(fn, attr, getattr(fn, attr) + n * times)
 
 
 class Covariance(torch.autograd.Function):

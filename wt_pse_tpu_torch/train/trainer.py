@@ -7,6 +7,17 @@ over the ranks of a process group.
   (``data/augment.py``) and runs the 4-phase step (``train/step.py``). The
   step's metrics stay device tensors; they are stacked and fetched once an
   epoch, so the loop makes no host sync a step.
+- Two drivers run an epoch, chosen by ``scan_epochs`` (the JAX Trainer's
+  name): the graph (``train/graph.py``), the sample + step captured once as
+  a CUDA graph at construction and replayed once a step, the counterpart of
+  JAX's one-program ``lax.scan`` epoch; and the eager loop, one Python call
+  of each a step. ``None`` (the default) takes the graph on a single CUDA
+  device and the loop on the CPU and under data parallelism; ``True`` asks
+  for the graph and raises where it cannot run; ``False`` takes the loop.
+  Both consume the run's generator alike, so they draw the same batches.
+  The graph's Adams are capturable (f32 bias corrections on the device), so
+  its updates differ from the loop's in the last ulps. ``run_meta.json``
+  records the driver that ran.
 - ``iter_per_epoch = total_samples // batch_size`` (Trainer.py:1011-1015).
 - Validation every ``interval_validate`` epochs once ``epoch > 2``
   (Trainer.py:1048): the two-stage predict on the device, the upsample to the
@@ -75,8 +86,9 @@ from wt_pse_tpu_torch.runtime import resolve_device
 from wt_pse_tpu_torch.config.hparams import ALGORITHMS, JOINT
 from wt_pse_tpu_torch.train.eval import evaluate_domain, make_predict_fn_for
 from wt_pse_tpu_torch.train.eval_device import evaluate_domain_device
+from wt_pse_tpu_torch.train.graph import GraphedStep
 from wt_pse_tpu_torch.train.lr import epoch_lrs, reference_lr_kwargs, reference_lr_value
-from wt_pse_tpu_torch.train.state import WTPSETrainState, init_ensemble
+from wt_pse_tpu_torch.train.state import WTPSETrainState, copy_state_, init_ensemble, set_lr_
 from wt_pse_tpu_torch.train.step import StepConfig, make_train_step
 from wt_pse_tpu_torch.utils.logging import RunLogger
 
@@ -164,6 +176,7 @@ class Trainer:
         train_visualization: bool = False,
         train_viz_interval: int = 30,
         lr_schedule: dict | None = None,
+        scan_epochs: bool | None = None,
         dp: bool | None = None,
         dp_devices: int | None = None,
         device: str | torch.device = "cuda",
@@ -180,7 +193,11 @@ class Trainer:
         Reproducibility: the same seed takes another, statistically
         equivalent, trajectory under data parallelism on more than one rank
         (each rank samples its own stream; BatchNorm sums in another order);
-        ``dp=False`` reproduces a single-device run."""
+        ``dp=False`` reproduces a single-device run.
+
+        ``scan_epochs``: the epoch driver (module docstring). ``True`` raises
+        ``ValueError`` under data parallelism (gloo's collectives cannot be
+        captured) and off CUDA (a CUDA graph needs a card)."""
         self.device = resolve_device(device)
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}; have {ALGORITHMS}")
@@ -223,6 +240,16 @@ class Trainer:
                 f"{'data-parallel group' if self.dp else 'single-device run'} this "
                 f"configuration trains on (per-domain batch {self.per_domain_batch}); launch "
                 f"{self.n_dev} process(es): torchrun --nproc-per-node {self.n_dev}")
+        if scan_epochs and self.dp:
+            raise ValueError("scan_epochs=True runs the epoch as a CUDA graph, which cannot "
+                             "hold data parallelism's collectives (gloo's cannot be captured); "
+                             "pass scan_epochs=None or False with dp")
+        if scan_epochs and self.device.type != "cuda":
+            raise ValueError(f"scan_epochs=True runs the epoch as a CUDA graph, which needs a "
+                             f"CUDA card; this trainer is on {self.device} (pass "
+                             "scan_epochs=None or False)")
+        self.scan_epochs = (self.device.type == "cuda" and not self.dp
+                            if scan_epochs is None else bool(scan_epochs))
         if self.dp:
             print(f"[trainer] data-parallel over {self.n_dev} ranks: "
                   f"{self.per_domain_batch // self.n_dev}/domain/rank, global batch "
@@ -249,7 +276,7 @@ class Trainer:
         self.state: WTPSETrainState = init_ensemble(
             self.cfg, device=self.device, generator=torch.Generator().manual_seed(seed),
             lr_od=lr_od, lr_od_shape=lr_od_shape, lr_oc=lr_oc, lr_oc_shape=lr_oc_shape,
-            algorithm=algorithm)
+            algorithm=algorithm, capturable=self.scan_epochs)
         self.data = stack_domains(train_domains, self.device)
         if self.dp:
             fused = make_dp_fused([ns.net for ns in self.state.net_states()], self.hparams,
@@ -271,6 +298,8 @@ class Trainer:
                   f"{self.n_dev} ranks - validation runs unsharded (single device)")
         self._gen = torch.Generator(device=self.device)
         self._rollbacks = 0
+        self._graph: GraphedStep | None = None
+        self._last_batch: dict | None = None  # the eager loop's latest batch
 
         # validation: images on the device, masks at native resolution
         self.val_images = torch.from_numpy(np.asarray(val_domain.images, np.uint8)).to(self.device)
@@ -312,7 +341,8 @@ class Trainer:
 
         meta_name = "run_meta.json"
         if resume:
-            # the full ensemble with its optimizers, and the step count
+            # the full ensemble with its optimizers, and the step count; before
+            # the capture, and in place (a capturable Adam keeps its tensors)
             restore_ensemble(resume, self.state)
             self.epoch = self.state.step // self.iter_per_epoch
             best_json = os.path.join(os.path.dirname(os.path.abspath(resume)), "best.json")
@@ -329,12 +359,24 @@ class Trainer:
                 meta_name = f"run_meta.resume{n}.json"
                 n += 1
 
+        if self.scan_epochs:
+            # the batch's shapes from a throwaway generator: the run's draws nothing
+            probe = self._batch_fn(self.data, torch.Generator(device=self.device).manual_seed(0))
+            self._graph = GraphedStep(self.state, self._train_step, probe,
+                                      capacity=self.iter_per_epoch, batch_fn=self._batch_fn,
+                                      data=self.data, generator=self._gen)
+            self._graph.capture()
+            print(f"[trainer] captured the step as a CUDA graph in "
+                  f"{self._graph.capture_seconds:.2f} s; its memory pool "
+                  f"{self._graph.pool_bytes / 2 ** 30:.2f} GiB")
+
         self.logger.run_meta({
             "algorithm": algorithm, "label": label, "seed": seed,
             "batch_size": batch_size, "image_size": image_size,
             "max_epoch": max_epoch, "stop_epoch": self.stop_epoch,
             "replicate_ref_quirks": replicate_ref_quirks,
             "compute_dtype": str(self.hparams.get("compute_dtype", "float32")),
+            "driver": "graph" if self.scan_epochs else "eager",
             "dp": {"requested": "auto" if auto_dp else bool(dp), "enabled": self.dp,
                    "n_devices": self.n_dev,
                    "reproduce_single_device": None if not self.dp else
@@ -371,6 +413,12 @@ class Trainer:
             for i in range(k)]
         path = save_val_img(self.out, self.epoch, montages)
         self.logger.image("val/montage", np.asarray(Image.open(path)), self.epoch)
+
+    @property
+    def last_batch(self) -> dict:
+        """The batch the latest step trained on: the graph's static batch, or
+        the eager loop's latest."""
+        return self._graph.batch if self._graph is not None else self._last_batch
 
     def _save_train_montage(self, batch: dict, iteration: int):
         """Log sample 0 of ``batch`` through :func:`viz_forward`
@@ -451,29 +499,59 @@ class Trainer:
         prof.export_chrome_trace(path)
         print(f"profiler trace ({self.profile_steps} steps) -> {path}")
 
+    def fused_step(self) -> dict[str, torch.Tensor]:
+        """One eager sample + step on the run's state and generator (the JAX
+        Trainer's ``fused_step``); returns the step's metrics."""
+        self._last_batch = self._batch_fn(self.data, self._gen)
+        return self._train_step(self.state, self._last_batch, generator=self._gen)
+
+    def epoch_step(self, first_step: int, n_steps: int) -> dict[str, torch.Tensor]:
+        """Steps ``first_step .. first_step + n_steps - 1`` of the run, by the
+        trainer's driver: ``n_steps`` replays of the graph, or as many eager
+        :meth:`fused_step` calls. Returns each metric's (n_steps,) stack on
+        the device (the JAX Trainer's ``epoch_step``). What the steps draw is
+        decided by the run's generator, which ``train`` re-seeds each epoch;
+        ``first_step`` names the steps."""
+        if self._graph is not None:
+            return self._graph.replay(n_steps)
+        ms = [self.fused_step() for _ in range(n_steps)]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    def _chunks(self, base: int) -> list[int]:
+        """The epoch's steps from global step ``base`` cut into runs, each
+        ending at a step ``g`` with ``g % train_viz_interval == 0`` (whose
+        batch the montage shows), or the whole epoch as one run."""
+        if not self.train_visualization:
+            return [self.iter_per_epoch]
+        ends = [it + 1 for it in range(self.iter_per_epoch)
+                if (base + it) % self.train_viz_interval == 0]
+        if not ends or ends[-1] != self.iter_per_epoch:
+            ends.append(self.iter_per_epoch)
+        return [b - a for a, b in zip([0] + ends[:-1], ends)]
+
     def _train_epoch(self, epoch: int) -> dict[str, float]:
         """One epoch of steps; returns the epoch means of the step metrics."""
         if self._lr_kwargs is not None:
             lrs = epoch_lrs(epoch, self.lr_od, self.lr_od_shape, self.lr_oc,
                             self.lr_oc_shape, **self._lr_kwargs)
             for ns, lr in zip(self.state.net_states(), lrs):
-                for group in ns.opt.param_groups:
-                    group["lr"] = lr
+                set_lr_(ns.opt, lr)
         self._gen.manual_seed(rank_seed(_draw_seed(self.seed, epoch, self._rollbacks),
                                         self.mesh))
-        step_ms = []
+        base = epoch * self.iter_per_epoch
+        stacks, done = [], 0
         t0 = time.perf_counter()
-        for it in range(self.iter_per_epoch):
-            batch = self._batch_fn(self.data, self._gen)
-            step_ms.append(self._train_step(self.state, batch, generator=self._gen))
-            g = epoch * self.iter_per_epoch + it
+        for n in self._chunks(base):
+            stacks.append(self.epoch_step(base + done, n))
+            done += n
+            g = base + done - 1
             if (self.train_visualization and self.is_main_process
                     and g % self.train_viz_interval == 0):
-                self._save_train_montage(batch, g)
+                self._save_train_montage(self.last_batch, g)
         self.enqueue_seconds.append(time.perf_counter() - t0)
-        names = sorted(step_ms[0])
+        names = sorted(stacks[0])
         # the one device-to-host copy of the epoch
-        per_step = torch.stack([torch.stack([m[k] for m in step_ms])
+        per_step = torch.stack([torch.cat([s[k] for s in stacks])
                                 for k in names]).cpu().numpy()
         if self.per_step_logging:
             base = epoch * self.iter_per_epoch
@@ -541,7 +619,8 @@ class Trainer:
                     and np.isfinite(metrics.get("loss_seg_oc", 0.0))):
                 if self.nan_recovery and self._last_good is not None:
                     print(f"[epoch {epoch}] non-finite loss - rolling back")
-                    self.state = copy.deepcopy(self._last_good)
+                    # in place: a captured graph keeps the state's tensors
+                    copy_state_(self.state, self._last_good)
                     self._rollbacks += 1  # the next epochs draw afresh
                     _csv()
                     continue
