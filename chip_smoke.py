@@ -98,17 +98,31 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    nets) and ``load_predictor``; epoch, validation and CLI times;
 10. data parallelism and the sweep (``parallel/``), each part in processes of
    its own that this script starts and stops: (a) ``Trainer(dp=True)`` at
-   full width in one spawned rank of a world-1 NCCL process group, 3 epochs
-   of 4 steps and one (batch-sharded) validation, with the launch counts set
-   to 0 just before and read just after (8 of each f32 kernel a step),
-   finite metrics, one step's metrics within rtol 2e-3 of a ``dp=False``
-   trainer's on the same seed, and its epoch times beside phase 6's; (b) two
+   full width in one spawned rank of a world-1 NCCL process group, in f32 and
+   in bf16, under both drivers from one seed: the graph (the default under
+   NCCL: the DP sample + step, its collectives included, captured once and
+   replayed a step) and the loop (``scan_epochs=False``); one epoch of both
+   step by step, every replayed batch bitwise equal to the loop's and the
+   first step's metrics within the scan-vs-loop bounds (in bf16 the
+   ``POST_UPDATE`` metrics at class bf16, as phase 12); 2 epochs of 4 steps
+   of each through ``train()`` with the launch counts set to 0 just before
+   and read just after (8 of each kernel of the dtype a step, and 8 a step
+   in the graph); one more epoch of each traced (the card's busy share), the
+   epoch and host enqueue times, the capture time and the graph's pool;
+   ``run_meta.json`` naming each driver; in f32 one step's metrics within
+   rtol 2e-3 of a ``dp=False`` trainer's on the same state and draws and a
+   batch-sharded validation of the graph's nets (finite). At world 1 the MMD
+   gather does not run (it gathers only over more than one rank). After
+   phase 12 the DP graph's epoch and busy share are printed beside the
+   single-device graph's; (b) two
    gloo ranks sharing the one card (NCCL refuses two ranks on one card): one
    DP step at 256x256, global batch 12 = 3 x 4, shape prior and whitening on,
    the draws injected, in f32 and in bf16, against rank 0's single-process
    step on the global batch (``tests/test_parallel.py:227-236``'s bounds;
    bf16 at class bf16), 8 launches of each kernel of the dtype a step on each
    rank, every rank's state bitwise equal, and the host-staged gloo step time;
+   and the Trainer's driver over gloo: ``scan_epochs=True`` raises
+   ``ValueError`` naming gloo, ``None`` trains an epoch under the loop;
    (c) ``python -m wt_pse_tpu_torch.cli.sweep`` with 2 jobs (target 4, OD
    and OC) on a synthetic on-disk split of 4 domains written with PIL, to one
    validation each: exit 0, ``sweep_results.json`` with both keys and the
@@ -205,7 +219,7 @@ EARLIER_MS = {"covariance_gram_bf16": 0.0208, "covariance_dz_bf16": 0.0272}
 BF16_TOL = (2e-2, 1e-3)    # tolerance class bf16 (card against CPU, both in bf16)
 STEPS_BF16 = 8             # phase 8: full-width bf16 steps on one fixed batch
 JOINT = "Unet_nips2023_joint_shape_regularization"
-DP_EPOCHS = 3              # phase 10 (a): 3 epochs of 4 steps, then one validation
+DP_EPOCHS = 2              # phase 10 (a): 2 epochs of 4 steps a driver, then one validation
 DP_RANK_TIMEOUT_S = 420.0  # a phase 10 rank that hangs fails the run
 DP_STEP_HW = 256           # phase 10 (b): the image size of the 2-rank step
 SPATIAL_HW = 1024          # phase 11 (a): a megapixel image, batch 2, rows split over ranks
@@ -236,6 +250,13 @@ POST_UPDATE = ("loss_kd", "loss_kd_oc")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def cov_error(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -394,15 +415,20 @@ def check_against_cpu(dev) -> None:
 def device_time(prof):
     """(busy us: the union of the device kernels' and copies' intervals,
     first-to-last window us, us by name, calls by name) of a trace; the
-    annotation ranges are left out."""
+    annotation ranges are left out. It reads the profiler's raw events:
+    ``prof.events()`` builds every host op's event tree first, which took
+    38-41 s for one traced data-parallel loop epoch on an H100 machine's
+    host."""
     from torch.autograd import DeviceType
 
     spans, by_name, calls = [], {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            calls[e.name] = calls.get(e.name, 0) + 1
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not getattr(e, "is_user_annotation",
+                                                               lambda: False)():
+            start = e.start_ns() / 1e3
+            spans.append((start, start + e.duration_ns() / 1e3))
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e3
+            calls[e.name()] = calls.get(e.name(), 0) + 1
     if not spans:
         raise SystemExit("the profiler saw no device time")
     busy, end = 0.0, -math.inf
@@ -421,7 +447,8 @@ KERNEL_GROUPS = (("covariance", r"gram_\w+_kernel|dz_(\w+_)?kernel"),
                  ("convolution", r"conv|cudnn|fft|implicit|xmma|wgrad|dgrad|winograd|"
                                  r"nchwToNhwc|nhwcToNchw|sm90_|sm80_"),
                  ("cast", r"direct_copy|copy_kernel"),
-                 ("upsample", r"upsample"))
+                 ("upsample", r"upsample"),
+                 ("nccl", r"nccl"))
 
 
 def kernel_group(name: str) -> str:
@@ -1189,10 +1216,14 @@ def joint_path(cc, dev, tmp: str, p6: dict) -> None:
 
 
 def _dp_trainer_rank(rank: int, tmp: str) -> dict:
-    """Phase 10 (a), in a spawned rank of a world-1 NCCL group: a ``dp=False``
-    and a ``dp=True`` Trainer on phase 6's pools, one step of each from the
-    same state and draws, then the DP trainer's 3 epochs (launches counted)
-    and one validation."""
+    """Phase 10 (a), in a spawned rank of a world-1 NCCL group, on phase 6's
+    pools: for f32 and bf16, a ``dp=True`` Trainer under each driver from one
+    seed, the graph (the default) and the loop (``scan_epochs=False``): one
+    epoch of both step by step (every batch, the first step's metrics),
+    ``DP_EPOCHS`` epochs of each through ``train()`` with the launch counts
+    set to 0 just before and read just after, and one more epoch of each
+    traced; in f32 also one step against a ``dp=False`` Trainer's from the
+    same state and draws, and a validation of the graph's nets."""
     import copy
 
     from wt_pse_tpu_torch.config import default_hparams
@@ -1205,29 +1236,68 @@ def _dp_trainer_rank(rank: int, tmp: str) -> dict:
     train, val = synthetic_pools()
     kw = dict(batch_size=9, interval_validate=99, label="OD", seed=1, eval_batch_size=8,
               val_visualization=False, device=dev, max_epoch=DP_EPOCHS)
-    trainers = {dp: Trainer(default_hparams("WT_PSE"), train, val, os.path.join(tmp, f"dp_{dp}"),
-                            dp=dp, **kw) for dp in (False, True)}
-    step = {}
-    for dp, t in trainers.items():
-        gen = torch.Generator(device=dev).manual_seed(rank_seed(7, t.mesh))
-        m = t._train_step(copy.deepcopy(t.state), t._batch_fn(t.data, gen), generator=gen)
-        step[dp] = {k: float(v) for k, v in m.items()}
-    t = trainers[True]
-    torch.cuda.synchronize()
-    zero_counts(cc)
-    t.train()
-    torch.cuda.synchronize()
-    launches = read_counts(cc)
-    val_out, t_val = timed(t.validate)
-    with open(os.path.join(t.out, "metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f if "loss_seg" in line]
-    with open(os.path.join(t.out, "run_meta.json")) as f:
-        meta = json.load(f)
-    return {"step": step, "launches": launches, "steps": DP_EPOCHS * t.iter_per_epoch,
-            "epoch_seconds": t.epoch_seconds, "enqueue_seconds": t.enqueue_seconds,
-            "val": val_out, "val_seconds": t_val, "sharded": t._shard_eval,
-            "records": recs, "meta_dp": meta["dp"],
-            "backend": torch.distributed.get_backend(t.mesh.group)}
+
+    def build(name: str, hp: dict, **extra):
+        t = Trainer(hp, train, val, os.path.join(tmp, f"dp_{name}"), **kw, **extra)
+        with open(os.path.join(t.out, "run_meta.json")) as f:
+            return t, json.load(f)
+
+    def drive(t) -> dict:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts(cc)
+        t0 = time.perf_counter()
+        t.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = read_counts(cc)
+        with open(os.path.join(t.out, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f if "loss_seg" in line]
+        rec = {"steps": DP_EPOCHS * t.iter_per_epoch, "launches": launches,
+               "epoch_s": t.epoch_seconds, "enqueue_s": t.enqueue_seconds, "records": recs,
+               "peak_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               "train_s": train_s}
+        t0 = time.perf_counter()
+        rec["profile"] = profile_epoch(t)
+        rec["profile_s"] = time.perf_counter() - t0
+        if t._graph is not None:
+            rec.update(capture_s=t._graph.capture_seconds,
+                       pool_gib=t._graph.pool_bytes / 2 ** 30,
+                       launches_a_step={f"{n}.{a}": c for (n, a), c in
+                                        t._graph.launches_per_step.items() if c})
+        return rec
+
+    hp32 = default_hparams("WT_PSE")
+    out = {"drivers": {}, "seconds": {}}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        hp = dict(hp32, compute_dtype=dtype)
+        g, meta = build(f"graph_{dtype}", hp, dp=True)
+        loop, loop_meta = build(f"loop_{dtype}", hp, dp=True, scan_epochs=False)
+        out["seconds"][f"{dtype} built"] = time.perf_counter() - t0
+        if dtype == "float32":  # one step against dp=False, from the same state and draws
+            single, _ = build("single", hp, dp=False, scan_epochs=False)
+            out["step"] = {}
+            for dp, t in ((False, single), (True, g)):
+                gen = torch.Generator(device=dev).manual_seed(rank_seed(7, t.mesh))
+                m = t._train_step(copy.deepcopy(t.state), t._batch_fn(t.data, gen),
+                                  generator=gen)
+                out["step"][dp] = {k: float(v) for k, v in m.items()}
+            del single
+            out.update(meta_dp=meta["dp"],
+                       backend=torch.distributed.get_backend(g.mesh.group))
+        t1 = time.perf_counter()
+        rec = {"run_meta_driver": {"graph": meta["driver"], "loop": loop_meta["driver"]},
+               "vs_loop": graph_vs_loop_epoch(g, loop)}
+        out["seconds"][f"{dtype} vs loop"] = time.perf_counter() - t1
+        rec.update(graph=drive(g), loop=drive(loop))
+        if dtype == "float32":
+            rec["val"], rec["val_s"] = timed(g.validate)
+            rec["sharded"] = g._shard_eval
+        out["drivers"][dtype] = rec
+        out["seconds"][dtype] = time.perf_counter() - t0
+        del g, loop
+    return out
 
 
 def _dp_step_rank(rank: int, tmp: str) -> dict:
@@ -1298,6 +1368,39 @@ def _dp_step_rank(rank: int, tmp: str) -> dict:
                 "max": float(flat.max()), "mean": float(flat.mean()),
                 "first_leaf_of_bound": float((diff["inc.conv1.weight"] / (5e-5 + 1e-2 * w)).max())}
         out[dtype] = res
+    out["drivers"] = _gloo_drivers(dev, tmp, rank)
+    return out
+
+
+def _gloo_drivers(dev, tmp: str, rank: int) -> dict:
+    """Phase 10 (b)'s driver resolution over gloo, on 64x64 pools of 3
+    domains x 2 at batch 6 (one step an epoch): ``Trainer(dp=True,
+    scan_epochs=True)`` raises ``ValueError`` (gloo's collectives cannot be
+    captured), and ``scan_epochs=None`` takes the eager loop and trains an
+    epoch."""
+    from wt_pse_tpu_torch.config import default_hparams
+    from wt_pse_tpu_torch.data.fundus import FundusDomain
+    from wt_pse_tpu_torch.train.trainer import Trainer
+
+    r = np.random.RandomState(8)
+    doms = [FundusDomain(images=r.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+                         labels=r.choice([0, 128, 255], size=(2, 64, 64)).astype(np.uint8))
+            for _ in range(3)]
+    kw = dict(batch_size=6, max_epoch=1, interval_validate=99, val_visualization=False,
+              device=dev, dp=True)
+    out = {}
+    try:
+        Trainer(default_hparams("WT_PSE"), doms, doms[0], os.path.join(tmp, "gloo_true"),
+                scan_epochs=True, **kw)
+        out["scan_epochs_true"] = "built"
+    except ValueError as e:
+        out["scan_epochs_true"] = f"ValueError: {e}"
+    t = Trainer(default_hparams("WT_PSE"), doms, doms[0], os.path.join(tmp, "gloo_none"), **kw)
+    t.train()
+    out.update(scan_epochs=t.scan_epochs, graph=t._graph is not None, step=t.state.step)
+    if rank == 0:
+        with open(os.path.join(t.out, "run_meta.json")) as f:
+            out["run_meta_driver"] = json.load(f)["driver"]
     return out
 
 
@@ -1329,38 +1432,67 @@ def write_sweep_split(root: str, seed: int = 21) -> None:
             Image.fromarray(mask).save(os.path.join(d, "mask", name))
 
 
-def dp_path(tmp: str, p6: dict) -> None:
+def dp_path(tmp: str) -> dict:
     """Phase 10: data parallelism and the sweep, each part in processes of its
-    own, started here and stopped before the next part."""
+    own, started here and stopped before the next part. Returns (a)'s records
+    by dtype."""
     from wt_pse_tpu_torch.parallel.distributed import run_local_ranks
 
-    # (a) the DP trainer, world 1 over NCCL
+    # (a) the DP trainer, world 1 over NCCL, under both drivers
     t0 = time.perf_counter()
     (a,) = run_local_ranks(_dp_trainer_rank, 1, f"file://{tmp}/rdzv_a", (tmp,),
                            backend="nccl", timeout_s=DP_RANK_TIMEOUT_S)
     wall_a = time.perf_counter() - t0
     worst = max(abs(a["step"][True][k] - v) / (1e-5 + 2e-3 * abs(v))
                 for k, v in a["step"][False].items())
-    et = a["epoch_seconds"]
-    log(f"phase 10 (a) Trainer(dp=True), world 1 over {a['backend']}, 256x256, batch 9 = 3x3, "
-        f"f32, {DP_EPOCHS} epochs x {a['steps'] // DP_EPOCHS} steps: epochs " +
-        ", ".join(f"{t:.3f}" for t in et) + f" s (steady median {statistics.median(et[1:]):.3f} "
-        f"s) against phase 6's single-device epochs in this call " +
-        ", ".join(f"{t:.3f}" for t in p6["trainer"].epoch_seconds) + " s; host enqueue " +
-        ", ".join(f"{t:.3f}" for t in a["enqueue_seconds"]) + f" s; launches {a['launches']}; "
-        f"validation ({'batch-sharded' if a['sharded'] else 'unsharded'}) "
-        f"{a['val_seconds']:.3f} s: {json.dumps(a['val'])}; run_meta dp {json.dumps(a['meta_dp'])}; "
-        f"one step against dp=False, worst |error| / (1e-5 + 2e-3 |want|) {worst:.3f}; "
-        f"{wall_a:.1f} s with the rank's start")
-    expect_counts(a["launches"], 8 * a["steps"], 0, "phase 10 (a)")
-    bad = [r["step"] for r in a["records"]
-           if not all(math.isfinite(v) for k, v in r.items() if k != "step")]
-    if len(a["records"]) != DP_EPOCHS or bad or worst > 1.0:
-        raise SystemExit(f"phase 10 (a): {len(a['records'])} epoch records, non-finite at "
-                         f"{bad}, step against dp=False {worst:.3f} of rtol 2e-3")
-    if len(a["val"]) != 7 or not all(map(math.isfinite, a["val"].values())) or \
-            not a["meta_dp"]["enabled"] or not a["sharded"]:
-        raise SystemExit(f"phase 10 (a): validation {a['val']}, run_meta {a['meta_dp']}")
+    log(f"phase 10 (a) on {card_line()}: Trainer(dp=True), world 1 over {a['backend']} (the "
+        f"MMD gather runs only at world > 1: not in this graph), 256x256, batch 9 = 3x3, "
+        f"{DP_EPOCHS} epochs x 4 steps a driver; one step against dp=False, worst |error| / "
+        f"(1e-5 + 2e-3 |want|) {worst:.3f}; run_meta dp {json.dumps(a['meta_dp'])}; seconds by dtype "
+        f"{json.dumps(a['seconds'])}")
+    for dtype, rec in a["drivers"].items():
+        n_f32, n_bf16 = (8, 0) if dtype == "float32" else (0, 8)
+        log(f"phase 10 (a) {dtype}: {json.dumps(rec)}")
+        g, loop = rec["graph"], rec["loop"]
+        log(f"phase 10 (a) {dtype} on {card_line()}: steady epoch, DP graph "
+            f"{steady_epoch(g):.4f} s, DP loop {steady_epoch(loop):.4f} s "
+            f"({steady_epoch(g) / steady_epoch(loop):.3f}x); card busy "
+            f"{g['profile']['busy_share']:.1%} of a traced DP graph epoch, "
+            f"{loop['profile']['busy_share']:.1%} of a DP loop epoch; host enqueue a DP graph "
+            f"epoch " + ", ".join(f"{t:.3f}" for t in g["enqueue_s"]) + " s, a DP loop epoch " +
+            ", ".join(f"{t:.3f}" for t in loop["enqueue_s"]) + f" s; capture "
+            f"{g['capture_s']:.2f} s, the graph's pool {g['pool_gib']:.2f} GiB; peak allocated "
+            f"{g['peak_allocated_gib']:.2f} GiB (graph), {loop['peak_allocated_gib']:.2f} GiB "
+            f"(loop)")
+        for driver, r in (("graph", g), ("loop", loop)):
+            expect_counts(r["launches"], n_f32 * r["steps"], n_bf16 * r["steps"],
+                          f"phase 10 (a) {dtype} {driver}")
+            bad = [x["step"] for x in r["records"]
+                   if not all(math.isfinite(v) for k, v in x.items() if k != "step")]
+            if len(r["records"]) != DP_EPOCHS or bad:
+                raise SystemExit(f"phase 10 (a) {dtype} {driver}: {len(r['records'])} epoch "
+                                 f"records, non-finite at {bad}")
+        key = "launches_bf16" if n_bf16 else "launches"
+        if g["launches_a_step"] != {f"covariance_forward.{key}": 8,
+                                    f"covariance_backward.{key}": 8}:
+            raise SystemExit(f"phase 10 (a) {dtype}: the graph holds launches "
+                             f"{g['launches_a_step']} a step, not 8 of each kernel")
+        if rec["run_meta_driver"] != {"graph": "graph", "loop": "eager"}:
+            raise SystemExit(f"phase 10 (a) {dtype}: run_meta records the drivers "
+                             f"{rec['run_meta_driver']}")
+        check = rec["vs_loop"]
+        if not all(check["batches_bitwise_equal"]) or check["first_step"]["err_of_bound"] > 1.0:
+            raise SystemExit(f"phase 10 (a) {dtype}: the DP graph and the DP loop disagree: "
+                             f"{check}")
+    f32 = a["drivers"]["float32"]
+    log(f"phase 10 (a) validation of the DP graph's nets "
+        f"({'batch-sharded' if f32['sharded'] else 'unsharded'}) {f32['val_s']:.3f} s: "
+        f"{json.dumps(f32['val'])}; {wall_a:.1f} s with the rank's start")
+    if worst > 1.0:
+        raise SystemExit(f"phase 10 (a): step against dp=False {worst:.3f} of rtol 2e-3")
+    if len(f32["val"]) != 7 or not all(map(math.isfinite, f32["val"].values())) or \
+            not a["meta_dp"]["enabled"] or not f32["sharded"]:
+        raise SystemExit(f"phase 10 (a): validation {f32['val']}, run_meta {a['meta_dp']}")
 
     # (b) two gloo ranks sharing the card
     t0 = time.perf_counter()
@@ -1392,6 +1524,13 @@ def dp_path(tmp: str, p6: dict) -> None:
                 r0["od_param_diff"]["max"] > 2.2 * 5e-4:
             raise SystemExit(f"phase 10 (b) {dtype}: the DP step disagrees with the single "
                              "process, or the ranks' states differ")
+    drivers = [res["drivers"] for res in b]
+    log(f"phase 10 (b) the Trainer's driver over gloo, by rank: {json.dumps(drivers)}")
+    if not all(d["scan_epochs_true"].startswith("ValueError") and "gloo" in
+               d["scan_epochs_true"] and d["scan_epochs"] is False and not d["graph"] and
+               d["step"] == 1 for d in drivers) or drivers[0]["run_meta_driver"] != "eager":
+        raise SystemExit(f"phase 10 (b): over gloo, scan_epochs=True must raise and None "
+                         f"must train under the loop: {drivers}")
     log(f"phase 10 (b): {wall_b:.1f} s with the ranks' start")
 
     # (c) the sweep CLI, 2 jobs on the card
@@ -1417,6 +1556,7 @@ def dp_path(tmp: str, p6: dict) -> None:
             len(summary) != 3:
         raise SystemExit(f"phase 10 (c): the sweep CLI failed:\n{proc.stdout[-4000:]}\n"
                          f"{proc.stderr[-4000:]}")
+    return a["drivers"]
 
 
 def spatial_nets(dev, lift: float = 0.0):
@@ -1747,6 +1887,11 @@ def spatial_path(cc, dev, tmp: str) -> dict:
     return out
 
 
+def steady_epoch(rec: dict) -> float:
+    """The median of a driver's epoch times after the first."""
+    return statistics.median(rec["epoch_s"][1:])
+
+
 def metric_errors(got: dict, want: dict, bf16: bool) -> dict:
     """One step's metrics (one-element tensors) against another's: the worst
     |got - want| / (atol + rtol |want|) at each metric's bound (the
@@ -1835,8 +1980,8 @@ def graph_vs_loop_epoch(graph_trainer, loop_trainer) -> dict:
 
 def profile_epoch(trainer) -> dict:
     """One epoch of ``trainer``'s driver (``epoch_step``) traced with
-    torch.profiler: the card's busy share of the traced wall time, and the
-    device events a step."""
+    torch.profiler: the card's busy share of the traced wall time, the
+    device events a step and the device ms a step by kernel group."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1845,10 +1990,15 @@ def profile_epoch(trainer) -> dict:
         trainer.epoch_step(0, trainer.iter_per_epoch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, window, _, calls = device_time(prof)
+    busy, window, by_name, calls = device_time(prof)
+    by_group: dict[str, float] = {}
+    for name, us in by_name.items():
+        group = kernel_group(name)
+        by_group[group] = by_group.get(group, 0.0) + us / 1e3 / trainer.iter_per_epoch
     return {"wall_s": wall, "busy_s": busy / 1e6, "busy_share": busy / 1e6 / wall,
             "busy_of_window": busy / window,
-            "events_a_step": sum(calls.values()) / trainer.iter_per_epoch}
+            "events_a_step": sum(calls.values()) / trainer.iter_per_epoch,
+            "device_ms_a_step_by_group": by_group}
 
 
 def graph_path(cc, dev, tmp: str, train, val) -> dict:
@@ -2087,9 +2237,7 @@ def main() -> int:
     for line in compiler_out.splitlines():  # each kernel's name, then its numbers
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
-    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True, text=True,
-                       check=True, timeout=60).stdout.strip().splitlines()[0])
+    log(card_line())
 
     def phase(n: int, fn, *args):
         t0 = time.perf_counter()
@@ -2106,9 +2254,18 @@ def main() -> int:
         phase(7, eval_path, cc, dev, tmp, p6)
         bf16_launches = phase(8, bf16_path, cc, dev, tmp, f32_step_ms, p6)
         phase(9, joint_path, cc, dev, tmp, p6)
-        phase(10, dp_path, tmp, p6)
+        p10 = phase(10, dp_path, tmp)
         phase(11, spatial_path, cc, dev, tmp)
-        phase(12, graph_path, cc, dev, tmp, p6["train"], p6["val"])
+        p12 = phase(12, graph_path, cc, dev, tmp, p6["train"], p6["val"])
+    for dtype, name in (("float32", "WT_PSE f32"), ("bfloat16", "WT_PSE bf16")):
+        dp_g, one = p10[dtype]["graph"], p12[name]["graph"]
+        log(f"the DP graph (phase 10 (a), world 1 over NCCL) against the single-device graph "
+            f"(phase 12), {dtype}, this call, {card_line()}: steady epoch "
+            f"{steady_epoch(dp_g):.4f} s against {steady_epoch(one):.4f} s "
+            f"({steady_epoch(dp_g) / steady_epoch(one):.3f}x); card busy "
+            f"{dp_g['profile']['busy_share']:.1%} against {one['profile']['busy_share']:.1%}; "
+            f"the graph's pool {dp_g['pool_gib']:.2f} against "
+            f"{p12[name]['graph_pool_gib']:.2f} GiB")
     for row in rows:  # the counts of the trainers' runs: f32 phase 6, bf16 phase 8
         row["launches"] = (bf16_launches if row["name"].endswith("_bf16")
                            else p6["launches"])[row["name"]]

@@ -32,7 +32,12 @@ package's scan-vs-loop bounds (rtol 1e-4, atol 1e-6,
 ``tests/test_trainer_e2e.py:137-138``) of the default loop's and of the same
 step run eagerly with the same capturable Adam, 8 launches of each kernel a
 replay, a capture that leaves the state and the generator as they were, and
-a capture that meets a host sync raises.
+a capture that meets a host sync raises; the graph under data parallelism
+(``Trainer(dp=True)`` over a world-1 NCCL group, and over one NCCL rank a
+card on a machine with two or more cards): the replayed batches equal the
+loop's, the first step within the scan-vs-loop bounds, 8 launches of each
+kernel a replay, the ranks' states bitwise equal, and a resume under the
+loop.
 """
 
 import numpy as np
@@ -589,3 +594,67 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda, tmp_path):
     # the eager warm-up's launches stay counted, the failed capture's do not
     warmup = {k: 8 * WARMUP_STEPS if k[1] == "launches" else 0 for k in counts}
     assert {k: n - counts[k] for k, n in cc.launch_counts().items()} == warmup
+
+
+def test_dp_trainer_over_world_one_nccl_captures_and_replays_the_loops_batches(cuda, tmp_path):
+    """``Trainer(dp=True)`` in a rank of a world-1 NCCL group captures the
+    data-parallel step, collectives included (``run_meta.json``: driver
+    ``graph``); from one seed its replayed batches equal the loop's bitwise;
+    a replayed epoch moves the launch counters by 8 of each kernel a step;
+    the graphed run's checkpoint (written between replays, with the barrier
+    after it) resumes under the loop and trains an epoch, and under the DP
+    graph, where a non-finite epoch rolls back bitwise."""
+    from wt_pse_tpu_torch.parallel.distributed import run_local_ranks
+
+    from torch_dp_worker import dp_graph_rank
+
+    (res,) = run_local_ranks(dp_graph_rank, 1, f"file://{tmp_path}/rdzv", (str(tmp_path),),
+                             backend="nccl", local_rank=cuda.index or 0, timeout_s=300)
+    _assert_dp_graph_rank(res)
+
+
+def _assert_dp_graph_rank(res):
+    """``torch_dp_worker.dp_graph_rank``'s record of one rank: the graph and
+    the loop from one seed draw the same batches, their first steps agree at
+    the scan-vs-loop bounds (rtol 1e-4, atol 1e-6), 8 launches of each kernel
+    a replayed step, the checkpoint resumes under the loop and, restored in
+    place, under the DP graph, whose ``nan_recovery`` rolls back bitwise
+    into the graph's tensors."""
+    assert res["drivers"] == ["graph", "eager"] and res["graphed"], res
+    graph, loop = res["first_step"]
+    assert set(graph) == set(loop)
+    for k, v in loop.items():
+        np.testing.assert_allclose(graph[k], v, rtol=1e-4, atol=1e-6, err_msg=k)
+    assert res["same_batches"] == [True] * res["iter_per_epoch"], res
+    per_step = {"covariance_forward.launches": 8, "covariance_backward.launches": 8}
+    assert res["launches_a_step"] == per_step, res
+    assert res["launches_an_epoch"] == {k: 8 * res["iter_per_epoch"] for k in per_step}, res
+    assert res["checkpoint"] and res["resumed"]["driver"] == "eager", res
+    assert res["resumed"]["start"] == res["step"] == 6 * res["iter_per_epoch"], res
+    assert res["resumed"]["step"] == res["step"] + res["iter_per_epoch"], res
+    assert res["resumed"]["finite"], res
+    again = res["resumed_graph"]
+    assert again["driver"] == "graph" and again["restored_alike"], again
+    assert again["epochs"] == 3 and again["rollbacks"] == 1, again
+    assert again["rolled_back"] and again["finite"], again
+
+
+def test_dp_graph_across_cards_captures_the_collectives_and_keeps_the_ranks_equal(cuda,
+                                                                                  tmp_path):
+    """On every card of the machine (two or more: NCCL takes one rank a card),
+    ``Trainer(dp=True)`` captures the data-parallel step with its NCCL
+    collectives across the ranks, the MMD gather included; on each rank it
+    holds what the world-1 test holds, and every rank ends the graphed run
+    with the same state, bitwise."""
+    from wt_pse_tpu_torch.parallel.distributed import run_local_ranks
+
+    from torch_dp_worker import dp_graph_rank
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards (one NCCL rank a card); this machine has {n}")
+    res = run_local_ranks(dp_graph_rank, n, f"file://{tmp_path}/rdzv", (str(tmp_path),),
+                          backend="nccl", local_rank=None, timeout_s=300)
+    for r in res:
+        _assert_dp_graph_rank(r)
+    assert len({r["digest"] for r in res}) == 1

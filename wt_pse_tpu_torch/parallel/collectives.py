@@ -20,6 +20,17 @@ gradient of the global batch.
 :func:`halo_rows` is the row exchange of H-axis sharded inference
 (``parallel/spatial.py::spatial_sharded``): each rank's slab of an image
 takes one row from each neighbouring rank's slab.
+
+Under a CUDA graph (``train/graph.py``) over NCCL: the collectives of the
+training step (:func:`all_reduce_sum` and its backward, run on autograd's
+thread, :func:`all_gather_rows`, :func:`mean_grads_`, :func:`mean_values`)
+are captured as they are. Their ``all_reduce`` waits by making the current
+stream wait for NCCL's, with no host sync (unless
+``TORCH_NCCL_BLOCKING_WAIT`` is set, which the port never sets), so the
+capture's sync debug mode lets them pass. :func:`broadcast_floats` and
+:func:`barrier` read their result on the host, and :func:`halo_rows` and the
+batch-sharded predict serve inference: they run between replays, never
+inside one.
 """
 
 from __future__ import annotations

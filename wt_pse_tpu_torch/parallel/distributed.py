@@ -53,8 +53,12 @@ def initialize_multihost(init_method: str | None = None, world_size: int | None 
             raise RuntimeError(f"local rank {local_rank} has no card: this machine has "
                                f"{torch.cuda.device_count()}")
         torch.cuda.set_device(local_rank)
+    # bound to its card, NCCL's group makes its communicator here rather than
+    # at its first collective, which a CUDA graph capture could not hold
+    device_id = torch.device("cuda", local_rank) if backend == "nccl" else None
     dist.init_process_group(backend, init_method=init_method, world_size=world_size,
-                            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+                            rank=rank, timeout=datetime.timedelta(seconds=timeout_s),
+                            device_id=device_id)
     return True
 
 
@@ -80,20 +84,22 @@ def _rank_main(fn, rank: int, world_size: int, init_method: str, backend: str,
 
 
 def run_local_ranks(fn, world_size: int, init_method: str, args: tuple = (),
-                    backend: str = "gloo", local_rank: int = 0,
+                    backend: str = "gloo", local_rank: int | None = 0,
                     timeout_s: float = 120.0) -> list:
     """Run ``fn(rank, *args)`` in ``world_size`` fresh processes (the spawn
     method), rank ``r`` in process ``r``, each with the process group of all
     of them up (``init_method``, e.g. ``file://<path>``; ``backend``; every
-    rank's card ``local_rank``, where there is CUDA). Returns the results by
+    rank's card ``local_rank``, where there is CUDA, or card ``r`` for rank
+    ``r`` with ``local_rank=None``: NCCL takes one rank a card). Returns the results by
     rank. Raises with the rank's traceback if one fails, and kills every rank
     still running when ``timeout_s`` passes. ``fn`` and its arguments and
     results are pickled, so ``fn`` is a module-level function."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, r, world_size, init_method, backend, local_rank,
-                               timeout_s, args, results))
+                         args=(fn, r, world_size, init_method, backend,
+                               r if local_rank is None else local_rank, timeout_s, args,
+                               results))
              for r in range(world_size)]
     for p in procs:
         p.start()

@@ -40,8 +40,11 @@ class DataMesh:
 def data_mesh(n_devices: int | None = None) -> DataMesh:
     """The mesh of the first ``n_devices`` ranks of the process group (all of
     them when None). Every rank of the group must call it: a mesh smaller
-    than the group makes a new group, which is collective. Without a process
-    group, the mesh of this one process (``n_devices`` None or 1)."""
+    than the group makes a new group, which is collective (under NCCL bound
+    to a card, ``initialize_multihost``, its communicator is made here, split
+    from the group's, and not at its first collective, which a CUDA graph
+    capture could not hold). Without a process group, the mesh of this one
+    process (``n_devices`` None or 1)."""
     rank, world = rank_and_world()
     n = world if n_devices is None else n_devices
     if not 1 <= n <= world:

@@ -29,6 +29,20 @@ state's ``step`` count, and the covariance kernels' launch counters
 (``ops/covariance_cuda.py``), from which the capture's launches are taken
 back and to which each replay adds them.
 
+Data parallelism (``parallel/dp.py::make_dp_fused``, the counterpart of
+JAX's ``epoch`` over ``make_dp_fused``): the graph holds the step's NCCL
+collectives (sync BatchNorm, the gradient and metric means, the
+``pos_weight`` sums, the MMD gather), launched on the capture stream in the
+forward and on autograd's thread in the backward. Every rank captures in
+lockstep and replays as often: the warm-up's collectives are real ones, the
+step's Python branches that decide which collectives run depend on the
+configuration alone, and the Trainer's replay counts and rollbacks depend on
+global or rank-meaned values. NCCL's communicator is made before the capture
+(at ``init_process_group``, and in any case by the warm-up); the collectives
+that run between replays (checkpoint barriers, the validation's) share it,
+in the same order on every rank. Gloo's host-staged collectives cannot be
+captured.
+
 There is no fallback: a capture that fails, or a replay that raises, raises
 to the caller. The capture runs with CUDA's sync debug mode set to error, so
 a host sync in the step (``.item()``, ``nonzero``, a Python branch on a
@@ -40,6 +54,7 @@ graph records, runs eagerly on the same buffers.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 import warnings
@@ -117,37 +132,54 @@ class GraphedStep:
         copy, no host sync)."""
         return dict(zip(self.names, self.metrics[:, :n].clone()))
 
-    def capture(self, warmup: int = WARMUP_STEPS) -> None:
-        """Warm up, then capture :meth:`body` on the run's state.
+    def prepare(self, warmup: int = WARMUP_STEPS,
+                stream: torch.cuda.Stream | None = None) -> None:
+        """What a capture needs made before it starts, on CUDA or the CPU.
 
-        The warm-up runs ``warmup`` steps on a ``copy.deepcopy`` of the
-        state with a generator of its own, on the side stream the capture
-        then uses: cuDNN's and cuBLAS's handles and plans and the covariance
-        library's per-device caches are made there, and Adam creates the
+        Runs ``warmup`` steps of :meth:`body` on a ``copy.deepcopy`` of the
+        state with a generator of its own (on ``stream``, the capture's side
+        stream, when given): cuDNN's and cuBLAS's handles and plans, the
+        covariance library's per-device caches and, under data parallelism,
+        NCCL's communicator and buffers are made there, and Adam creates the
         state of the parameters a step gives a gradient, which is then
-        created in the run's optimizers too (still zero). The capture runs
-        nothing: the weights, BatchNorm statistics, Adam state and the run's
-        generator stay as they were, and so do the step count and the launch
-        counters, which only the host saw move."""
-        if self.device.type != "cuda":
-            raise ValueError(f"a CUDA graph needs a CUDA device; this step is on {self.device}")
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
+        created in the run's optimizers too (still zero). The run's
+        weights, BatchNorm statistics, Adam state, step count and generator
+        stay as they were.
+
+        Under data parallelism every rank must call it, in lockstep: the
+        copy shares the run's mesh (``DataMesh.__deepcopy__``), so its
+        collectives are real ones, and every rank's warm-up issues the same
+        sequence of them."""
         warm = copy.deepcopy(self.state)
         gen = torch.Generator(device=self.device).manual_seed(0)
-        with torch.cuda.stream(side), warnings.catch_warnings():
+        with (torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()), \
+                warnings.catch_warnings():
             warnings.filterwarnings("ignore", message=".*capturable=True.*")
             for _ in range(warmup):
                 self.rewind()
                 self.body(warm, gen)
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        if stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(stream)
         for ns, ns_warm in zip(self.state.net_states(), warm.net_states()):
             init_adam_state(ns.opt, [p for p, q in zip(ns.net.parameters(),
                                                        ns_warm.net.parameters())
                                      if q in ns_warm.opt.state])
         del warm
         self.rewind()
+
+    def capture(self, warmup: int = WARMUP_STEPS) -> None:
+        """:meth:`prepare` on the capture's side stream, then capture
+        :meth:`body` on the run's state. The capture runs nothing: the
+        weights, BatchNorm statistics, Adam state and the run's generator
+        stay as they were, and so do the step count and the launch counters,
+        which only the host saw move. Under data parallelism every rank
+        captures, in lockstep, the same sequence of collectives."""
+        if self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device; this step is on {self.device}")
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        self.prepare(warmup, side)
 
         step, before = self.state.step, cc.launch_counts()
         graph = torch.cuda.CUDAGraph()

@@ -11,9 +11,12 @@ over the ranks of a process group.
   name): the graph (``train/graph.py``), the sample + step captured once as
   a CUDA graph at construction and replayed once a step, the counterpart of
   JAX's one-program ``lax.scan`` epoch; and the eager loop, one Python call
-  of each a step. ``None`` (the default) takes the graph on a single CUDA
-  device and the loop on the CPU and under data parallelism; ``True`` asks
-  for the graph and raises where it cannot run; ``False`` takes the loop.
+  of each a step. ``None`` (the default) takes the graph on a CUDA card,
+  on one device or data-parallel over NCCL (the graph then holds the step's
+  collectives: JAX's ``epoch`` over ``make_dp_fused``), and the loop on the
+  CPU and over gloo, whose host-staged collectives cannot be captured;
+  ``True`` asks for the graph and raises where it cannot run; ``False``
+  takes the loop.
   Both consume the run's generator alike, so they draw the same batches.
   The graph's Adams are capturable (f32 bias corrections on the device), so
   its updates differ from the loop's in the last ulps. ``run_meta.json``
@@ -71,6 +74,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from wt_pse_tpu_torch import native
 from wt_pse_tpu_torch.data.augment import make_device_batch_fn
@@ -119,6 +123,20 @@ def _draw_seed(seed: int, epoch: int, salt: int = 0) -> int:
     """A 63-bit generator seed from (seed, epoch, salt)."""
     digest = hashlib.sha256(f"{seed}:{epoch}:{salt}".encode()).digest()
     return int.from_bytes(digest[:8], "little") >> 1
+
+
+def graph_refusal(device: torch.device, mesh) -> str | None:
+    """Why the epoch cannot run as a CUDA graph on ``device`` over the data
+    mesh ``mesh`` (None when not data-parallel), or None where it can. The
+    graph holds the data-parallel step's collectives: NCCL's capture, gloo's
+    host-staged ones cannot, and a mesh without a process group has none."""
+    backend = dist.get_backend(mesh.group) if mesh is not None and mesh.group is not None \
+        else None
+    if backend not in (None, "nccl"):
+        return f"{backend}'s host-staged collectives cannot be captured"
+    if device.type != "cuda":
+        return f"a graph cannot be captured on {device}: it needs a CUDA card"
+    return None
 
 
 @torch.no_grad()
@@ -196,8 +214,11 @@ class Trainer:
         ``dp=False`` reproduces a single-device run.
 
         ``scan_epochs``: the epoch driver (module docstring). ``True`` raises
-        ``ValueError`` under data parallelism (gloo's collectives cannot be
-        captured) and off CUDA (a CUDA graph needs a card)."""
+        ``ValueError`` off CUDA (a CUDA graph needs a card) and under data
+        parallelism over gloo (its collectives cannot be captured); under
+        NCCL every rank captures the data-parallel step at construction, in
+        lockstep, and a capture that fails raises: nothing falls back to the
+        loop."""
         self.device = resolve_device(device)
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}; have {ALGORITHMS}")
@@ -240,16 +261,12 @@ class Trainer:
                 f"{'data-parallel group' if self.dp else 'single-device run'} this "
                 f"configuration trains on (per-domain batch {self.per_domain_batch}); launch "
                 f"{self.n_dev} process(es): torchrun --nproc-per-node {self.n_dev}")
-        if scan_epochs and self.dp:
-            raise ValueError("scan_epochs=True runs the epoch as a CUDA graph, which cannot "
-                             "hold data parallelism's collectives (gloo's cannot be captured); "
-                             "pass scan_epochs=None or False with dp")
-        if scan_epochs and self.device.type != "cuda":
-            raise ValueError(f"scan_epochs=True runs the epoch as a CUDA graph, which needs a "
-                             f"CUDA card; this trainer is on {self.device} (pass "
-                             "scan_epochs=None or False)")
-        self.scan_epochs = (self.device.type == "cuda" and not self.dp
-                            if scan_epochs is None else bool(scan_epochs))
+        why = graph_refusal(self.device, self.mesh)
+        if scan_epochs and why:
+            raise ValueError(f"scan_epochs=True runs the epoch as a CUDA graph"
+                             f"{', the data-parallel collectives included' if self.dp else ''}"
+                             f": {why} (pass scan_epochs=None or False)")
+        self.scan_epochs = why is None if scan_epochs is None else bool(scan_epochs)
         if self.dp:
             print(f"[trainer] data-parallel over {self.n_dev} ranks: "
                   f"{self.per_domain_batch // self.n_dev}/domain/rank, global batch "
