@@ -161,7 +161,30 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    memory. For f32 and bf16 also one step graphed against the same step run
    eagerly with the same capturable Adam (fixed batch, injected draws):
    metrics within the same bounds, and the largest parameter difference
-   beside the one between two eager runs.
+   beside the one between two eager runs;
+13. the training CLI as a user starts it, without torchrun, each run a
+   process of its own (``python -m wt_pse_tpu_torch.cli.train`` run by
+   ``runpy``, as ``-m`` runs it, with a probe in whichever process trains:
+   launch counts set to 0 just before ``train()`` and read just after, the
+   state's digest, the epoch times), on phase 6's pools written as a Fundus
+   tree with PIL (256x256, f32, 3 train domains of 12 images, phase 7's
+   test split): (a) on every machine, with only the first card visible:
+   ``--dp`` starts one NCCL rank, which holds both kernels against their
+   plain versions on its card and trains the DP graph at world 1
+   (``run_meta`` dp enabled, ``n_devices`` 1, ``n_processes`` 1; 8 launches
+   of each kernel a step); auto trains in the CLI's own process with data
+   parallelism off; a rank made to fail in its second epoch ends the CLI
+   non-zero within ``CLI_FAIL_S``, its error naming the rank; (b) where two
+   or more cards are visible: auto at batch 9 starts 3 ranks, at batch 12
+   on 4 cards 4 (to a validation and its checkpoint), each rank on its own
+   card holding both kernels against their plain versions there, their final
+   states bitwise equal; that checkpoint resumed with ``--nan-recovery``,
+   one epoch made non-finite, rolled back and trained to its last epoch, the
+   ranks again equal; the epoch time and images a second beside phase 6's
+   one-card epoch. On one card (b) prints that it did not run.
+
+``python3 chip_smoke.py --phases N ...`` runs only those phases (and the
+ones they read); with no arguments it runs them all.
 
 The card's name and power limit follow the build line. The line before the
 last is a JSON ``kernels`` record of four rows, the f32 and the bf16 variant
@@ -235,6 +258,9 @@ SPATIAL_OD_GAIN = 20.0
 OC_REACH = 170
 EXTRAS_HW = 256            # phase 11 (b): the transform library's image size
 GRAPH_EPOCHS = 3           # phase 12: epochs of each driver a variant
+CLI_EPOCHS = 2             # phase 13: epochs of a CLI run that writes no checkpoint
+CLI_FAIL_S = 15.0          # phase 13 (a): a failing rank ends the CLI within this
+CLI_TIMEOUT_S = 300.0      # phase 13: a CLI run that outlasts this fails the script
 # the JAX package's scan-vs-loop bounds of one step's metrics
 # (tests/test_trainer_e2e.py:137-138)
 SCAN_RTOL, SCAN_ATOL = 1e-4, 1e-6
@@ -2090,6 +2116,282 @@ def graph_path(cc, dev, tmp: str, train, val) -> dict:
     return out
 
 
+def state_digest(state) -> str:
+    """A hash of every parameter, buffer and optimizer state tensor of the
+    four nets: equal digests are bitwise-equal states."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for ns in state.net_states():
+        for name, t in ns.net.state_dict().items():
+            h.update(name.encode() + t.detach().cpu().contiguous().numpy().tobytes())
+        for i, st in sorted(ns.opt.state_dict()["state"].items()):
+            for k, v in sorted(st.items()):
+                h.update(f"{i}{k}".encode() + torch.as_tensor(v).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _install_probe(spec: dict, extra: dict | None = None) -> None:
+    """Phase 13's probe in a process that trains (the CLI's own, or a rank
+    its launcher started): ``Trainer.train`` sets the launch counts to 0 just
+    before the run and reads them just after, and appends the run's record
+    (state digest, steps, epochs and their times, rollbacks, data-parallel
+    decision, driver, launches, ``extra``) to ``<probe>/rank<r>.json``. A
+    ``spec["fail"]`` run raises in its second epoch (its time is written
+    first); a ``spec["flaky_epoch"]`` has its loss made non-finite the first
+    time it trains."""
+    import torch.distributed as dist
+
+    from wt_pse_tpu_torch.ops import covariance_cuda as cc
+    from wt_pse_tpu_torch.train.trainer import Trainer
+
+    train, train_epoch, runs = Trainer.train, Trainer._train_epoch, []
+
+    def path(what: str) -> str:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        return os.path.join(spec["probe"], f"{what}{rank}.json")
+
+    def probed_train(self):
+        torch.cuda.synchronize()
+        zero_counts(cc)
+        best = train(self)
+        torch.cuda.synchronize()
+        runs.append(dict(extra or {}, digest=state_digest(self.state), step=self.state.step,
+                         epoch_s=self.epoch_seconds, rollbacks=self._rollbacks, dp=self.dp,
+                         n_dev=self.n_dev, iter_per_epoch=self.iter_per_epoch,
+                         batch=self.per_domain_batch * self.domain_num,
+                         driver="graph" if self.scan_epochs else "eager",
+                         launches=read_counts(cc), card=torch.cuda.current_device()))
+        with open(path("rank"), "w") as f:
+            json.dump(runs, f)
+        return best
+
+    def probed_train_epoch(self, epoch: int) -> dict:
+        if spec.get("fail") and epoch == 1:
+            with open(path("failed"), "w") as f:
+                json.dump({"at": time.time()}, f)
+            raise RuntimeError("phase 13: this rank is made to fail")
+        metrics = train_epoch(self, epoch)
+        if epoch == spec.get("flaky_epoch") and not self._rollbacks:
+            metrics = dict(metrics, loss_seg=float("nan"))
+        return metrics
+
+    Trainer.train, Trainer._train_epoch = probed_train, probed_train_epoch
+
+
+def _probed_rank(spec: dict, fn, rank: int, args, left_argv):
+    """A rank of the CLI's launcher under phase 13's probe: both kernels held
+    against their plain versions on this rank's card, at the rank's share of
+    the main path's shape, then the CLI's rank body ``fn``."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from wt_pse_tpu_torch.ops import covariance_cuda as cc
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    domains = len(args.datasetTrain)
+    b = args.batch_size // domains // dist.get_world_size() * domains
+    gen = torch.Generator(device=dev).manual_seed(rank)
+    z = torch.randn(b, 16, 256, 256, device=dev, generator=gen)
+    g = torch.randn(b, 16, 16, device=dev, generator=gen)
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        errs = check_pair(cc, z, g, f"rank {rank} on {torch.cuda.get_device_name(dev)} "
+                                    f"cuda:{dev.index}, z {tuple(z.shape)}")
+    _install_probe(spec, {"kernel_check": said.getvalue().strip(), "kernel_errors": errs})
+    return fn(rank, args, left_argv)
+
+
+def probed_cli(argv: list) -> int:
+    """Phase 13's CLI process: ``python -m wt_pse_tpu_torch.cli.train
+    argv[1:]`` (``runpy``, as ``-m`` runs it: a launched rank re-imports the
+    CLI module as its main, as under ``-m``), with the probe of
+    ``argv[0]`` (JSON) in this process and wrapped around the rank body the
+    CLI's launcher starts."""
+    import functools
+    import runpy
+
+    from wt_pse_tpu_torch.parallel import distributed
+
+    spec, launch = json.loads(argv[0]), distributed.launch_ranks
+
+    def probed_launch(fn, world_size, args=(), **kw):
+        return launch(functools.partial(_probed_rank, spec, fn), world_size, args, **kw)
+
+    distributed.launch_ranks = probed_launch  # the CLI module imports it from here
+    _install_probe(spec)
+    sys.argv = ["wt_pse_tpu_torch.cli.train", *argv[1:]]
+    runpy.run_module("wt_pse_tpu_torch.cli.train", run_name="__main__", alter_sys=True)
+    return 0
+
+
+def write_cli_tree(root: str, train, val) -> None:
+    """Phase 13's synthetic Fundus tree, with PIL: phase 6's three train pools
+    as Domain1, 2 and 4 ``train`` (12 images each at 256x256) and phase 7's
+    test split as Domain3 ``test``."""
+    from PIL import Image
+
+    for dom, pool in zip((1, 2, 4), train):
+        d = os.path.join(root, f"Domain{dom}", "train", "ROIs")
+        for sub in ("image", "mask"):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        for i, (img, lab) in enumerate(zip(pool.images, pool.labels)):
+            name = f"{FUNDUS_PREFIX[dom]}_{i}.png"
+            Image.fromarray(img).save(os.path.join(d, "image", name))
+            Image.fromarray(lab).save(os.path.join(d, "mask", name))
+    write_test_split(root, val)
+
+
+def run_cli(tmp: str, name: str, args: list, visible: str | None = None, **spec) -> dict:
+    """The training CLI in a subprocess of its own (``probed_cli``), on the
+    tree under ``tmp``, out to ``tmp/name``; ``visible`` sets
+    ``CUDA_VISIBLE_DEVICES``. Returns its exit code, wall time, end time,
+    output, ``run_meta.json`` and the probe's records by rank."""
+    out, probe = os.path.join(tmp, name), os.path.join(tmp, f"probe_{name}")
+    os.makedirs(probe)
+    argv = ["--data-dir", os.path.join(tmp, "cli_data"), "--out", out, "--label", "OD",
+            "--running_times", "1", *args]
+    env = dict(os.environ, **({"CUDA_VISIBLE_DEVICES": visible} if visible else {}))
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                           "sys.exit(chip_smoke.probed_cli(sys.argv[1:]))",
+                           json.dumps(dict(spec, probe=probe)), *argv],
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT_S, cwd=here,
+                          env=env)
+    rec = {"rc": proc.returncode, "wall_s": time.perf_counter() - t0, "ended": time.time(),
+           "stdout": proc.stdout, "stderr": proc.stderr, "ranks": {}, "failed": {}}
+    for f in sorted(os.listdir(probe)):
+        with open(os.path.join(probe, f)) as fh:
+            kind, rank = re.match(r"([a-z]+)(\d+)\.json", f).groups()
+            rec["ranks" if kind == "rank" else "failed"][int(rank)] = json.load(fh)
+    meta = os.path.join(out, "run0", "run_meta.json")
+    rec["meta"] = json.load(open(meta)) if os.path.exists(meta) else None
+    return rec
+
+
+def cli_summary(rec: dict) -> str:
+    r0 = rec["ranks"].get(0, [{}])[-1]
+    meta = rec["meta"] or {}
+    return (f"exit {rec['rc']} in {rec['wall_s']:.1f} s; run_meta dp "
+            f"{json.dumps(meta.get('dp', {}).get('enabled'))} n_devices "
+            f"{meta.get('dp', {}).get('n_devices')} n_processes {meta.get('n_processes')} "
+            f"driver {meta.get('driver')}; ranks that trained {sorted(rec['ranks'])}; rank 0: "
+            f"{r0.get('epoch_s') and len(r0['epoch_s'])} epochs x {r0.get('iter_per_epoch')} "
+            f"steps, epochs " + ", ".join(f"{t:.4f}" for t in r0.get("epoch_s", [])) +
+            f" s, launches {r0.get('launches')}")
+
+
+def expect_cli(rec: dict, what: str, ranks: int, dp: bool, epochs: int) -> None:
+    """The CLI exited 0, ``ranks`` ranks trained (one record each, on cards
+    0..ranks-1) with the expected decision and ``epochs`` epochs, and each
+    launched 8 of each f32 kernel a step."""
+    meta = rec["meta"] or {}
+    ok = (rec["rc"] == 0 and sorted(rec["ranks"]) == list(range(ranks))
+          and meta.get("n_processes") == (ranks if dp else 1)
+          and meta.get("dp", {}).get("enabled") == dp
+          and meta.get("dp", {}).get("n_devices") == (ranks if dp else 1))
+    for rank, runs in rec["ranks"].items():
+        r = runs[-1]
+        steps = len(r["epoch_s"]) * r["iter_per_epoch"]
+        ok = ok and (r["dp"], r["n_dev"], r["card"], len(r["epoch_s"]), r["driver"]) == (
+            dp, ranks if dp else 1, rank, epochs, "graph")
+        want = {"covariance_gram": 8 * steps, "covariance_dz": 8 * steps,
+                "covariance_gram_bf16": 0, "covariance_dz_bf16": 0}
+        ok = ok and r["launches"] == want
+    if not ok:
+        raise SystemExit(f"phase 13 {what}: {cli_summary(rec)}\n{rec['stdout'][-3000:]}\n"
+                         f"{rec['stderr'][-5000:]}")
+
+
+def cli_path(tmp: str, p6: dict | None) -> dict:
+    """Phase 13: the training CLI as a user starts it, without torchrun, on
+    phase 6's pools written as a Fundus tree (256x256, f32, 3 train domains
+    of 12 images). (a) on the first card alone (``CUDA_VISIBLE_DEVICES``):
+    ``--dp`` starts one NCCL rank (the DP graph at world 1); auto trains in
+    the CLI's own process with data parallelism off; a rank made to fail ends
+    the CLI non-zero within ``CLI_FAIL_S``. (b) where more than one card is
+    visible: auto at batch 9 starts 3 ranks; at batch 12 on 4 cards, 4 (to
+    a validation and its checkpoint), whose states end bitwise equal and
+    whose kernels each agree with their plain versions on the rank's card;
+    and that checkpoint resumed with ``--nan-recovery``, a non-finite epoch
+    rolled back, to its last epoch. Every trained run's launch counts are set
+    to 0 just before its ``train()`` and read just after."""
+    cards = torch.cuda.device_count()
+    train, val = (p6["train"], p6["val"]) if p6 else synthetic_pools()
+    write_cli_tree(os.path.join(tmp, "cli_data"), train, val)
+    short = ["--max-epoch", str(CLI_EPOCHS), "--interval-validate", "99"]
+    first = (os.environ.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0]
+
+    dp1 = run_cli(tmp, "a_dp", ["--batch-size", "9", "--dp", *short], visible=first)
+    log(f"phase 13 (a) the CLI with --dp on one visible card: {cli_summary(dp1)}; the rank's "
+        f"kernel check: {dp1['ranks'].get(0, [{}])[-1].get('kernel_check')}")
+    expect_cli(dp1, "(a) --dp", 1, True, CLI_EPOCHS)
+    if "[launcher] data-parallel over 1 card(s)" not in dp1["stdout"]:
+        raise SystemExit(f"phase 13 (a): --dp did not launch one rank:\n{dp1['stdout'][-3000:]}")
+
+    auto = run_cli(tmp, "a_auto", ["--batch-size", "9", *short], visible=first)
+    log(f"phase 13 (a) the CLI under auto on one visible card: {cli_summary(auto)}")
+    expect_cli(auto, "(a) auto", 1, False, CLI_EPOCHS)
+    if "[launcher]" in auto["stdout"]:
+        raise SystemExit("phase 13 (a): auto on one card launched ranks")
+
+    fail = run_cli(tmp, "a_fail", ["--batch-size", "9", "--dp", *short], visible=first,
+                   fail=True)
+    after = fail["ended"] - fail["failed"][0]["at"] if 0 in fail["failed"] else float("nan")
+    said = "rank 0 failed" in fail["stderr"] and "made to fail" in fail["stderr"]
+    log(f"phase 13 (a) a rank made to fail in its second epoch: the CLI exited "
+        f"{fail['rc']} {after:.2f} s after the failure (limit {CLI_FAIL_S:g} s), "
+        f"{fail['wall_s']:.1f} s in all; its error names the rank and the cause: {said}")
+    if fail["rc"] == 0 or not after < CLI_FAIL_S or not said:
+        raise SystemExit(f"phase 13 (a): the failing rank did not end the run:\n"
+                         f"{fail['stderr'][-5000:]}")
+
+    out = {"a": {"dp": dp1, "auto": auto, "fail_after_s": after}}
+    if cards < 2:
+        log("phase 13 (b) did not run: one card is visible (it needs two or more)")
+        return out
+    t0 = time.perf_counter()
+    b9 = run_cli(tmp, "b_9", ["--batch-size", "9", *short])
+    log(f"phase 13 (b) the CLI under auto at batch 9 on {cards} cards: {cli_summary(b9)}")
+    expect_cli(b9, "(b) batch 9", min(3, cards) if cards != 2 else 1, cards != 2, CLI_EPOCHS)
+    n12 = max(n for n in range(1, cards + 1) if 4 % n == 0)
+    b12 = run_cli(tmp, "b_12", ["--batch-size", "12", "--max-epoch", "4",
+                                "--interval-validate", "4"])
+    log(f"phase 13 (b) the CLI under auto at batch 12 on {cards} cards: {cli_summary(b12)}")
+    expect_cli(b12, "(b) batch 12", n12, True, 4)
+    digests = {r: runs[-1]["digest"] for r, runs in b12["ranks"].items()}
+    for r, runs in sorted(b12["ranks"].items()):
+        log(f"phase 13 (b) rank {r}: {runs[-1]['kernel_check']}")
+    ckpt = os.path.join(tmp, "b_12", "run0", "checkpoint_4.pth.tar")
+    resumed = run_cli(tmp, "b_resumed", ["--batch-size", "12", "--max-epoch", "7",
+                                         "--interval-validate", "99", "--nan-recovery",
+                                         "--resume", ckpt], flaky_epoch=5)
+    rolled = {r: (runs[-1]["rollbacks"], runs[-1]["step"]) for r, runs in resumed["ranks"].items()}
+    log(f"phase 13 (b) batch 12 resumed from its checkpoint, epoch 5 made non-finite: "
+        f"{cli_summary(resumed)}; (rollbacks, step) by rank {rolled}")
+    expect_cli(resumed, "(b) resumed", n12, True, 3)
+    same = len(set(digests.values())) == 1
+    same_resumed = len({runs[-1]["digest"] for runs in resumed["ranks"].values()}) == 1
+    log(f"phase 13 (b) ranks' final states bitwise equal: batch 12 {same}, resumed "
+        f"{same_resumed}; (b) took {time.perf_counter() - t0:.1f} s")
+    if not (same and same_resumed and os.path.exists(ckpt)
+            and set(rolled.values()) == {(1, 6 * b12["ranks"][0][-1]["iter_per_epoch"])}):
+        raise SystemExit(f"phase 13 (b): digests {digests}, resumed {rolled}")
+    for name, rec in (("batch 9", b9), ("batch 12", b12)):
+        r = rec["ranks"][0][-1]
+        one = statistics.median(p6["trainer"].epoch_seconds[1:]) if p6 else None
+        steady = statistics.median(r["epoch_s"][1:])
+        log(f"phase 13 (b) {name} on {card_line()}: {r['n_dev']} ranks, global batch "
+            f"{r['batch']}, {r['iter_per_epoch']} steps an epoch, steady epoch "
+            f"{steady:.4f} s = {r['batch'] * r['iter_per_epoch'] / steady:.1f} images/s"
+            + (f"; phase 6's one-card epoch (batch 9, 4 steps) {one:.4f} s = "
+               f"{9 * 4 / one:.1f} images/s" if one else ""))
+    out["b"] = {"b9": b9, "b12": b12, "resumed": resumed}
+    return out
+
+
 def time_in_turns(fns, flush, iters: int = 30) -> list[float]:
     """Median ms of one call of each of ``fns``, with ``flush()`` (which evicts
     the L2) before every call, the functions taken in turns in one loop."""
@@ -2213,6 +2515,26 @@ def time_kernels(cc, dev, errs: dict) -> list[dict]:
     return rows
 
 
+# what a phase reads from the phases before it
+PHASE_NEEDS = {5: {2}, 7: {6}, 8: {4, 6}, 9: {6}, 12: {6}}
+
+
+def phases_to_run(argv: list) -> set:
+    """Every phase (2-13) with no arguments, as the script is run to hold the
+    port; ``--phases N ...`` runs those and the phases they read, for a
+    shorter run (the ``kernels`` line needs phases 2, 4, 5, 6 and 8)."""
+    if not argv:
+        return set(range(2, 14))
+    if argv[0] != "--phases" or not all(a.isdigit() and 2 <= int(a) <= 13 for a in argv[1:]):
+        raise SystemExit("usage: python3 chip_smoke.py [--phases N ...]   (N in 2..13)")
+    want = {int(a) for a in argv[1:]}
+    while True:
+        more = want.union(*(PHASE_NEEDS.get(n, set()) for n in want))
+        if more == want:
+            return want
+        want = more
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -2245,19 +2567,33 @@ def main() -> int:
         log(f"phase {n} took {time.perf_counter() - t0:.1f} s")
         return out
 
-    errs = phase(2, check_kernels, cc, dev)
-    phase(3, check_against_cpu, dev)
-    f32_step_ms = phase(4, main_path, cc, dev)
-    rows = phase(5, time_kernels, cc, dev, errs)
+    want = phases_to_run(sys.argv[1:])
+    errs = phase(2, check_kernels, cc, dev) if 2 in want else None
+    if 3 in want:
+        phase(3, check_against_cpu, dev)
+    f32_step_ms = phase(4, main_path, cc, dev) if 4 in want else None
+    rows = phase(5, time_kernels, cc, dev, errs) if 5 in want else None
+    p6 = p10 = p12 = bf16_launches = None
     with tempfile.TemporaryDirectory() as tmp:
-        p6 = phase(6, trainer_path, cc, dev, tmp)
-        phase(7, eval_path, cc, dev, tmp, p6)
-        bf16_launches = phase(8, bf16_path, cc, dev, tmp, f32_step_ms, p6)
-        phase(9, joint_path, cc, dev, tmp, p6)
-        p10 = phase(10, dp_path, tmp)
-        phase(11, spatial_path, cc, dev, tmp)
-        p12 = phase(12, graph_path, cc, dev, tmp, p6["train"], p6["val"])
+        if 6 in want:
+            p6 = phase(6, trainer_path, cc, dev, tmp)
+        if 7 in want:
+            phase(7, eval_path, cc, dev, tmp, p6)
+        if 8 in want:
+            bf16_launches = phase(8, bf16_path, cc, dev, tmp, f32_step_ms, p6)
+        if 9 in want:
+            phase(9, joint_path, cc, dev, tmp, p6)
+        if 10 in want:
+            p10 = phase(10, dp_path, tmp)
+        if 11 in want:
+            phase(11, spatial_path, cc, dev, tmp)
+        if 12 in want:
+            p12 = phase(12, graph_path, cc, dev, tmp, p6["train"], p6["val"])
+        if 13 in want:
+            phase(13, cli_path, tmp, p6)
     for dtype, name in (("float32", "WT_PSE f32"), ("bfloat16", "WT_PSE bf16")):
+        if p10 is None or p12 is None:
+            break
         dp_g, one = p10[dtype]["graph"], p12[name]["graph"]
         log(f"the DP graph (phase 10 (a), world 1 over NCCL) against the single-device graph "
             f"(phase 12), {dtype}, this call, {card_line()}: steady epoch "
@@ -2266,11 +2602,12 @@ def main() -> int:
             f"{dp_g['profile']['busy_share']:.1%} against {one['profile']['busy_share']:.1%}; "
             f"the graph's pool {dp_g['pool_gib']:.2f} against "
             f"{p12[name]['graph_pool_gib']:.2f} GiB")
-    for row in rows:  # the counts of the trainers' runs: f32 phase 6, bf16 phase 8
+    for row in rows or []:  # the counts of the trainers' runs: f32 phase 6, bf16 phase 8
         row["launches"] = (bf16_launches if row["name"].endswith("_bf16")
                            else p6["launches"])[row["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows}))
+    if rows is not None:
+        print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

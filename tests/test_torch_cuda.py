@@ -37,7 +37,9 @@ a capture that meets a host sync raises; the graph under data parallelism
 card on a machine with two or more cards): the replayed batches equal the
 loop's, the first step within the scan-vs-loop bounds, 8 launches of each
 kernel a replay, the ranks' states bitwise equal, and a resume under the
-loop.
+loop; the training CLI's launcher (``launch_ranks``) on every card of a
+machine with two or more: the resume-rollback run ends, every rank leaves
+its process group, and the ranks end bitwise equal.
 """
 
 import numpy as np
@@ -658,3 +660,29 @@ def test_dp_graph_across_cards_captures_the_collectives_and_keeps_the_ranks_equa
     for r in res:
         _assert_dp_graph_rank(r)
     assert len({r["digest"] for r in res}) == 1
+
+
+def test_launcher_runs_the_resume_rollback_sequence_on_every_card_and_ends(cuda, tmp_path):
+    """The training CLI's launcher (``launch_ranks``), one NCCL rank a card on
+    every card (two or more), runs ``dp_graph_rank`` on each: a graphed
+    ``Trainer(dp=True)`` to its checkpoint, a resume under the loop, and one
+    under the DP graph whose second epoch is made non-finite and rolled back
+    (``nan_recovery``) before it trains to its last epoch. Each rank holds
+    what the world-1 test holds, the ranks end bitwise equal, and every rank
+    leaves its process group: the launcher raises if one is still up
+    ``TEARDOWN_S`` after its result, as every rank was, in
+    ``destroy_process_group``, while the rolled-back trainer's CUDA graph
+    (kept by a reference cycle) held NCCL's communicator, until the teardown
+    collected garbage first. Bound: 300 s."""
+    from wt_pse_tpu_torch.parallel.distributed import launch_ranks
+
+    from torch_dp_worker import launched_dp_graph_rank
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards (one NCCL rank a card); this machine has {n}")
+    res = launch_ranks(launched_dp_graph_rank, n, (str(tmp_path),), deadline_s=300)
+    assert len(res["ranks"]) == n
+    for r in res["ranks"]:
+        _assert_dp_graph_rank(r)
+    assert len({r["digest"] for r in res["ranks"]}) == 1

@@ -186,14 +186,24 @@ def test_unsupported_configurations_raise(tmp_path, bad):
     test_torch_eval_device.py, tests/test_torch_train_montage.py), and so are
     bf16, the joint algorithm (tests/test_torch_bf16.py,
     tests/test_torch_joint*.py) and data parallelism (tests/test_torch_dp*.py):
-    an explicit ``dp`` whose mesh does not divide the per-domain batch (3)
-    raises."""
+    an explicit ``dp`` whose mesh does not divide the per-domain batch raises
+    (``tests/test_torch_dp_trainer.py``), and one whose ``dp_devices`` (2)
+    is above the ranks (1, no process group) is capped at them and builds, as
+    the JAX Trainer caps it at its devices (``trainer.py:164``)."""
     dom = FundusDomain(images=np.zeros((2, SIZE, SIZE, 3), np.uint8),
                        labels=np.full((2, SIZE, SIZE), 255, np.uint8))
     kw = {"label_none": dict(label=None), "batch_below_domains": dict(batch_size=2),
           "dp": dict(dp=True, dp_devices=2),
           "train_viz_interval": dict(train_visualization=True, train_viz_interval=0)}[bad]
     kw.setdefault("hparams", default_hparams("WT_PSE"))
-    with pytest.raises(ValueError, match="divisible" if bad == "dp" else None):
-        Trainer(train_domains=[dom] * 3, val_domain=dom, out_dir=str(tmp_path / "x"),
-                device="cpu", **kw)
+
+    def build():
+        return Trainer(train_domains=[dom] * 3, val_domain=dom, out_dir=str(tmp_path / "x"),
+                       device="cpu", **kw)
+
+    if bad == "dp":
+        t = build()
+        assert (t.dp, t.n_dev) == (True, 1)
+        return
+    with pytest.raises(ValueError):
+        build()

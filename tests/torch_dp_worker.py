@@ -318,6 +318,15 @@ def dp_graph_rank(rank: int, out_dir: str, device: str = "cuda") -> dict:
     return out
 
 
+def launched_dp_graph_rank(rank: int, out_dir: str) -> dict:
+    """:func:`dp_graph_rank` on this rank, as the training CLI's launcher
+    starts it; every rank's record, gathered, by rank."""
+    res = dp_graph_rank(rank, out_dir)
+    ranks = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(ranks, res)
+    return {"ranks": ranks}
+
+
 def _live(state) -> list:
     """The tensors of a training state, as they are held: each net's
     parameters and buffers, each optimizer's state."""
@@ -450,3 +459,59 @@ def graph_body_fed_rank(rank: int, hp: dict, state_dicts: dict, batches_ranks,
             "state_dicts": {name: {k: v.numpy().copy() for k, v in ns.net.state_dict().items()}
                             for name, ns in zip(names, state.net_states())},
             "digest": state_digest(state)}
+
+
+def cli_rank(rank: int, argv: list, probe_dir: str, flaky_epoch: int | None = None) -> dict:
+    """The training CLI's rank (``cli/train.py::rank_main``) as its launcher
+    runs it, on the CPU at 32x32: the Fundus loader decodes at 32x32 (the
+    CLI's decodes at 256x256) and the Trainer's network-resolution masks
+    match. ``argv`` is parsed as the CLI parses it. After each run of the
+    Trainer, this rank appends its state digest, step count, epochs and
+    rollbacks to ``probe_dir/rank{rank}.json``. ``flaky_epoch``: that
+    epoch's loss is made non-finite the first time it trains
+    (``--nan-recovery`` rolls it back). Returns the CLI's result."""
+    import functools
+    import json
+
+    from wt_pse_tpu_torch.cli import train as cli
+    from wt_pse_tpu_torch.train.trainer import Trainer
+
+    domains, fundus = cli.load_train_domains, cli.load_fundus
+    cli.load_train_domains = lambda *a: domains(*a, size=32)
+    cli.load_fundus = lambda *a, **k: fundus(*a, size=32, **k)
+    cli.Trainer = functools.partial(Trainer, image_size=32)
+    runs, train, train_epoch = [], Trainer.train, Trainer._train_epoch
+
+    def probed_train(self):
+        best = train(self)
+        runs.append({"digest": state_digest(self.state), "step": self.state.step,
+                     "epochs": len(self.epoch_seconds), "rollbacks": self._rollbacks,
+                     "dp": self.dp, "n_dev": self.n_dev})
+        with open(os.path.join(probe_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(runs, f)
+        return best
+
+    def flaky_train_epoch(self, epoch: int) -> dict:
+        metrics = train_epoch(self, epoch)
+        if epoch == flaky_epoch and not self._rollbacks:
+            metrics = dict(metrics, loss_seg=float("nan"))
+        return metrics
+
+    Trainer.train, Trainer._train_epoch = probed_train, flaky_train_epoch
+    args, left = cli.build_parser().parse_known_args(argv)
+    return cli.rank_main(rank, args, left)
+
+
+def failing_rank(rank: int, how: str) -> int:
+    """Rank 1 raises (``how="raise"``) or ends its process with code 3
+    (``"exit"``) half a second in; every other rank sleeps two minutes, as a
+    rank waiting on the failed one would."""
+    import time
+
+    if rank == 1:
+        time.sleep(0.5)
+        if how == "exit":
+            os._exit(3)
+        raise ValueError("rank 1 fails")
+    time.sleep(120)
+    return rank

@@ -4,26 +4,38 @@
     python -m wt_pse_tpu_torch.cli.train --datasetTrain 1 2 4 --datasetTest 3 \\
         --label OD --data-dir /path/to/Fundus --batch-size 9 [config.yaml ...]
 
-It runs on the card (``-g`` picks its index) unless ``--device cpu`` is given,
-trains ``--running_times`` times and prints the mean±std of the 6 best
-metrics (train.py:174-175). ``--algorithm`` is ``WT_PSE`` (the default) or
+It runs on the card unless ``--device cpu`` is given, trains
+``--running_times`` times and prints the mean±std of the 6 best metrics
+(train.py:174-175). ``--algorithm`` is ``WT_PSE`` (the default) or
 ``Unet_nips2023_joint_shape_regularization``; the hparam leftover
 ``--compute_dtype bfloat16`` trains in bf16 mixed precision.
 
-Data parallelism: start one process per card with torchrun, which sets the
-process group's environment (``parallel/distributed.py``); each process
-trains on the card ``LOCAL_RANK`` and rank 0 writes the run directory:
+Data parallelism over every visible card, from this one command, as the JAX
+CLI spans every chip its process sees: with ``--device cuda`` and more than
+one visible card, data parallelism is on (auto) over N of them: the visible
+cards, capped by ``--dp-devices``, then the largest N that divides the
+per-domain batch (``batch_size // len(datasetTrain)``), off at N = 1
+(``parallel/dp.py::choose_ranks``, the JAX Trainer's rule). The CLI then
+starts one NCCL rank a card itself (``parallel/distributed.py::
+launch_ranks``): rank ``r`` on card ``r`` of the visible ones, so
+``CUDA_VISIBLE_DEVICES`` chooses the cards and ``-g`` does not apply. Each
+rank runs the whole of this CLI's training, ``--running_times`` included;
+rank 0 prints and writes the run directory, and this process returns its
+result. A rank that fails ends the run, non-zero. ``--dp`` launches even
+over one card (one rank, its DP graph at world 1), as JAX keeps an explicit
+DP on over a one-device mesh; ``--no-dp`` trains in this process on card
+``-g``, and so does auto on one card. Under torchrun, which starts the
+processes itself and sets the process group's environment, each process
+trains on the card ``LOCAL_RANK`` and no rank is launched:
 
-    torchrun --nproc-per-node 4 -m wt_pse_tpu_torch.cli.train --dp \
+    torchrun --nproc-per-node 4 -m wt_pse_tpu_torch.cli.train --dp \\
         --batch-size 12 --datasetTrain 1 2 4 --datasetTest 3 --label OD ...
-
-Under torchrun ``--dp`` is on by default (auto) when the per-domain batch
-divides over more than one rank; ``--no-dp`` trains one device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from datetime import date
 
@@ -32,7 +44,9 @@ import torch
 
 from wt_pse_tpu_torch.config import default_hparams, load_config
 from wt_pse_tpu_torch.data.fundus import load_fundus, load_train_domains
-from wt_pse_tpu_torch.parallel.distributed import initialize_multihost, rank_and_world
+from wt_pse_tpu_torch.parallel.distributed import (initialize_multihost, launch_ranks,
+                                                   launched_by_torchrun, rank_and_world)
+from wt_pse_tpu_torch.parallel.dp import choose_ranks
 from wt_pse_tpu_torch.runtime import resolve_device
 from wt_pse_tpu_torch.train.trainer import Trainer
 from wt_pse_tpu_torch.utils.seed import seed_initialization
@@ -41,7 +55,8 @@ from wt_pse_tpu_torch.utils.seed import seed_initialization
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("-g", "--gpu", type=int, default=0,
-                   help="index of the CUDA card to train on (with --device cuda)")
+                   help="index of the CUDA card to train on (with --device cuda); not "
+                        "under data parallelism, whose ranks take the visible cards from 0")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="train on the card, or on the CPU")
     p.add_argument("--resume", default=None, help="checkpoint path")
@@ -107,17 +122,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="roll back to the last finite epoch instead of raising on a "
                         "non-finite loss")
     p.add_argument("--dp", dest="dp", action="store_true", default=None,
-                   help="force data parallelism over every rank torchrun started "
-                        "(one process per card; sync-BN, gradient mean and MMD "
-                        "all-gather over the process group). Default: auto - enabled "
-                        "whenever the process group has more than one rank; note "
-                        "auto-DP changes the per-seed sampling stream against a "
-                        "single-card run (use --no-dp to reproduce single-device "
-                        "numerics) [addition over the reference]")
+                   help="force data parallelism over every visible card, one NCCL rank a "
+                        "card started by this command on cards 0..N-1 of "
+                        "CUDA_VISIBLE_DEVICES (or over the ranks torchrun started); "
+                        "sync-BN, gradient mean and MMD all-gather over the process "
+                        "group. Default: auto - enabled whenever more than one card is "
+                        "visible (or torchrun started more than one rank); note auto-DP "
+                        "changes the per-seed sampling stream against a single-card run "
+                        "(use --no-dp to reproduce single-device numerics) [addition "
+                        "over the reference]")
     p.add_argument("--no-dp", dest="dp", action="store_false",
-                   help="force single-device training even under torchrun")
+                   help="force single-device training even on a machine of several "
+                        "cards or under torchrun")
     p.add_argument("--dp-devices", type=int, default=None,
-                   help="cap the data-parallel mesh at N ranks (default: all of them)")
+                   help="cap the data-parallel mesh at N cards (default: all visible)")
     p.add_argument("--compile-cache", default="",
                    help="accepted for flag parity and ignored: the port compiles "
                         "nothing ahead of time")
@@ -158,6 +176,22 @@ def _repair_left_argv(left_argv: list[str], configs: list[str]):
     return out, real_configs
 
 
+def launch_count(args) -> int | None:
+    """How many ranks this command starts itself, or None to train in this
+    process: with ``--device cuda``, outside torchrun, the JAX Trainer's
+    decision (``choose_ranks``) over the visible cards, when it turns data
+    parallelism on over more than one card, or over one card by an explicit
+    ``--dp``."""
+    if args.device != "cuda" or args.dp is False or launched_by_torchrun():
+        return None
+    cards = torch.cuda.device_count()
+    per_domain_batch = args.batch_size // len(args.datasetTrain)
+    if cards < 1 or per_domain_batch < 1:  # the Trainer in this process says why
+        return None
+    dp, n = choose_ranks(args.dp, args.dp_devices, per_domain_batch, cards)
+    return n if dp and (n > 1 or args.dp) else None
+
+
 def main(args=None, left_argv=None):
     parser = build_parser()
     if args is None:
@@ -166,8 +200,31 @@ def main(args=None, left_argv=None):
         args, extra = parser.parse_known_args([str(a) for a in args])
         left_argv = list(left_argv or []) + extra
     left_argv, args.configs = _repair_left_argv(list(left_argv or []), list(args.configs))
-    # under torchrun: join the process group; this rank trains on the card
-    # LOCAL_RANK, which initialize_multihost made current
+    n = launch_count(args)
+    if n is None:
+        return train(args, left_argv)
+    print(f"[launcher] data-parallel over {n} card(s) of {torch.cuda.device_count()} visible: "
+          f"one NCCL rank a card on cards 0..{n - 1}"
+          + (f" (-g {args.gpu} does not apply)" if args.gpu else ""), flush=True)
+    return launch_ranks(rank_main, n, (args, left_argv))
+
+
+def rank_main(rank: int, args, left_argv) -> dict:
+    """A rank started by :func:`main`: :func:`train` in the process group the
+    launcher made, on card ``rank``; only rank 0 prints."""
+    if rank == 0:
+        return train(args, left_argv)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        return train(args, left_argv)
+
+
+def train(args, left_argv) -> dict:
+    """The CLI's training on parsed arguments: ``--running_times`` runs of
+    the Trainer, then the mean±std of their best metrics; returns each
+    metric's list over the runs."""
+    # under torchrun or the launcher: join the process group (a no-op when the
+    # launcher made it); this rank trains on the card LOCAL_RANK, which
+    # initialize_multihost made current
     multi = initialize_multihost(backend=None if args.device == "cuda" else "gloo")
     gpu = (f"cuda:{torch.cuda.current_device()}" if multi and torch.cuda.is_available()
            else f"cuda:{args.gpu}")

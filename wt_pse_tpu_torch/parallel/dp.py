@@ -87,25 +87,26 @@ def make_dp_fused(nets, hparams: dict, mesh: DataMesh, domain_num: int,
 def choose_ranks(dp: bool | None, dp_devices: int | None, per_domain_batch: int,
                  world: int) -> tuple[bool, int]:
     """(data parallel?, N), decided as the JAX Trainer decides them
-    (``trainer.py:156-190``) over the ``world`` ranks of the process group:
+    (``trainer.py:156-190``) over ``world`` ranks: the ranks of the process
+    group, or the cards the training CLI's launcher can start one a card
+    (``cli/train.py``):
 
-    - ``dp=None`` (auto) turns data parallelism on when the group has more
-      than one rank, over ``min(dp_devices or world, world)`` ranks, and then
-      falls to the largest N that divides the per-domain batch; at N = 1 it
-      is off;
-    - an explicit ``dp=True`` takes N = ``dp_devices or world``, raises
-      ``ValueError`` if N does not divide the per-domain batch, and raises if
-      the group has fewer than N ranks (JAX caps N at the devices it sees; a
-      torch process sees only the ranks torchrun started);
+    - ``dp=None`` (auto) turns data parallelism on when there is more than
+      one rank;
+    - with it on, N = ``min(dp_devices or world, world)``: ``dp_devices``
+      caps N, and so does ``world``, for an explicit ``dp=True`` too (JAX
+      caps it at the devices it sees, ``trainer.py:164``);
+    - an N that does not divide the per-domain batch falls, under auto, to
+      the largest N that does, and raises ``ValueError`` under an explicit
+      ``dp=True``;
+    - auto at N = 1 is off; an explicit ``dp=True`` stays on over one rank;
     - ``dp=False``: one device."""
     auto = dp is None
     if auto:
         dp = world > 1
     if not dp:
         return False, 1
-    n = dp_devices or world
-    if auto:
-        n = min(n, world)
+    n = min(dp_devices or world, world)
     if per_domain_batch % n:
         if not auto:
             raise ValueError(
@@ -117,7 +118,4 @@ def choose_ranks(dp: bool | None, dp_devices: int | None, per_domain_batch: int,
             n -= 1
         print(f"[trainer] auto-DP: per-domain batch {per_domain_batch} not divisible by "
               f"{start} ranks - using {n} (pass dp=True to make this an error)")
-    if n > world:
-        raise ValueError(f"dp_devices={n} asks for {n} ranks, but the process group has "
-                         f"{world}: launch them with torchrun --nproc-per-node {n}")
     return not (auto and n == 1), n
