@@ -181,7 +181,23 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    states bitwise equal; that checkpoint resumed with ``--nan-recovery``,
    one epoch made non-finite, rolled back and trained to its last epoch, the
    ranks again equal; the epoch time and images a second beside phase 6's
-   one-card epoch. On one card (b) prints that it did not run.
+   one-card epoch. On one card (b) prints that it did not run;
+14. the sharded predicts across the cards of one process
+   (``data_mesh(devices=...)``, one thread a shard, the halo exchanges an
+   all-reduce by hand between barriers), on phase 11 (a)'s nets and image
+   (WT_PSE at full width, f32, batch 2 at 1024x1024): (a) on every machine,
+   ``spatial_sharded`` over ``[card 0]`` and ``[card 0, card 0]``, at H =
+   1040 (65 row blocks, which H % (16 N) refused) over 2 and 4 shards of the
+   card, and ``batch_sharded`` of 5 images at 512x512 over 2, each against
+   the single-process predict in this process at phase 11 (a)'s bounds, the
+   outputs on the mesh's first card, the halo exchanges of a predict equal
+   to phase 11 (a)'s, no covariance launch, the median times, no shard
+   thread left once each wrapper is closed; a shard made to fail ends the
+   call with its own exception within ``SHARD_FAIL_S`` and leaves no
+   thread; (b) where two
+   or more cards are visible, the same over every card, with its times
+   against one card and phase 11 (a)'s gloo ranks. On one card (b) prints
+   that it did not run.
 
 ``python3 chip_smoke.py --phases N ...`` runs only those phases (and the
 ones they read); with no arguments it runs them all.
@@ -205,6 +221,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -261,6 +278,9 @@ GRAPH_EPOCHS = 3           # phase 12: epochs of each driver a variant
 CLI_EPOCHS = 2             # phase 13: epochs of a CLI run that writes no checkpoint
 CLI_FAIL_S = 15.0          # phase 13 (a): a failing rank ends the CLI within this
 CLI_TIMEOUT_S = 300.0      # phase 13: a CLI run that outlasts this fails the script
+SHARDED_H = 1040           # phase 14: 65 row blocks, which H % (16 N) refused for every N > 1
+SHARDED_BATCH = (5, 512)   # phase 14: batch_sharded's chunk (images, H = W)
+SHARD_FAIL_S = 10.0        # phase 14 (a): a failing shard ends the call within this
 # the JAX package's scan-vs-loop bounds of one step's metrics
 # (tests/test_trainer_e2e.py:137-138)
 SCAN_RTOL, SCAN_ATOL = 1e-4, 1e-6
@@ -438,32 +458,39 @@ def check_against_cpu(dev) -> None:
         raise SystemExit("the card disagrees with the CPU reference on a small input")
 
 
-def device_time(prof):
-    """(busy us: the union of the device kernels' and copies' intervals,
-    first-to-last window us, us by name, calls by name) of a trace; the
-    annotation ranges are left out. It reads the profiler's raw events:
-    ``prof.events()`` builds every host op's event tree first, which took
-    38-41 s for one traced data-parallel loop epoch on an H100 machine's
-    host."""
+def device_time(prof, by_card: bool = False):
+    """(busy us: the union of the device kernels' and copies' intervals, or
+    with ``by_card`` each card's by its index, first-to-last window us, us by
+    name, calls by name) of a trace; the annotation ranges are left out. It
+    reads the profiler's raw events: ``prof.events()`` builds every host op's
+    event tree first, which took 38-41 s for one traced data-parallel loop
+    epoch on an H100 machine's host."""
     from torch.autograd import DeviceType
 
-    spans, by_name, calls = [], {}, {}
+    spans, by_name, calls = {}, {}, {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA and not getattr(e, "is_user_annotation",
                                                                lambda: False)():
             start = e.start_ns() / 1e3
-            spans.append((start, start + e.duration_ns() / 1e3))
+            spans.setdefault(e.device_index(), []).append((start, start + e.duration_ns() / 1e3))
             by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e3
             calls[e.name()] = calls.get(e.name(), 0) + 1
-    if not spans:
+    every = [x for v in spans.values() for x in v]
+    if not every:
         raise SystemExit("the profiler saw no device time")
+    window = max(e for _, e in every) - min(s for s, _ in every)
+    busy = {k: union_us(v) for k, v in sorted(spans.items())} if by_card else union_us(every)
+    return busy, window, by_name, calls
+
+
+def union_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
     busy, end = 0.0, -math.inf
     for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
-    window = max(e for _, e in spans) - min(s for s, _ in spans)
-    return busy, window, by_name, calls
+    return busy
 
 
 # device kernels by the layer they belong to, for the step's breakdown
@@ -1611,12 +1638,12 @@ def median_lift(nets, image, dev) -> float:
     return math.log(3.0) - float(od.median()) + 0.01
 
 
-def spatial_image(dev) -> torch.Tensor:
-    """(2, 3, SPATIAL_HW, SPATIAL_HW) in [-1, 1]: noise over a bright disc."""
+def spatial_image(dev, h: int = SPATIAL_HW) -> torch.Tensor:
+    """(2, 3, h, SPATIAL_HW) in [-1, 1]: noise over a bright disc."""
     r = np.random.RandomState(12)
-    yy, xx = np.mgrid[0:SPATIAL_HW, 0:SPATIAL_HW]
+    yy, xx = np.mgrid[0:h, 0:SPATIAL_HW]
     disc = ((yy - 500) ** 2 + (xx - 540) ** 2 < 300 ** 2).astype(np.float32)
-    img = r.rand(2, 3, SPATIAL_HW, SPATIAL_HW).astype(np.float32) * 1.4 - 1 + 0.6 * disc
+    img = r.rand(2, 3, h, SPATIAL_HW).astype(np.float32) * 1.4 - 1 + 0.6 * disc
     return torch.from_numpy(img).to(dev)
 
 
@@ -1634,17 +1661,19 @@ def time_predicts(predict, image, n: int = 3) -> tuple:
 
 
 def profile_predict(predict, image) -> dict:
-    """One traced predict: the card's busy ms and the three kernels that took
-    the most of it."""
+    """One traced predict: each card's busy ms, the window from the first
+    device event to the last, and the three kernels that took the most
+    device time over all cards."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         predict(image)
         torch.cuda.synchronize()
-    busy, _, by_name, _ = device_time(prof)
+    busy, window, by_name, _ = device_time(prof, by_card=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return {"busy_ms": busy / 1e3,
+    return {"busy_ms": {f"cuda:{k}": round(us / 1e3, 2) for k, us in busy.items()},
+            "window_ms": round(window / 1e3, 2),
             "top": [(name[:70], round(us / 1e3, 2)) for name, us in top]}
 
 
@@ -1910,6 +1939,161 @@ def spatial_path(cc, dev, tmp: str) -> dict:
     if err > 1.0:
         raise SystemExit("phase 11 (c): InstanceWhitening on the card disagrees with the CPU")
     out["instance_whitening_err_of_bound"] = err
+    return out
+
+
+class ShardFailure(RuntimeError):
+    """Phase 14 (a): the exception of the shard made to fail."""
+
+
+def _fail_at_fifth_conv(module, args):
+    raise ShardFailure("shard 1 made to fail at its fifth 3x3 conv")
+
+
+def shard_threads() -> list:
+    """The live shard threads of the in-process meshes' pools."""
+    from wt_pse_tpu_torch.parallel.spatial import SHARD_THREAD
+
+    return [t for t in threading.enumerate() if t.name.startswith(SHARD_THREAD)]
+
+
+def local_mesh_path(cc, dev, p11: dict | None) -> dict:
+    """Phase 14: the sharded predicts over a mesh of this one process's
+    devices (``data_mesh(devices=...)``, one thread a shard) on phase 11
+    (a)'s nets and image (WT_PSE at full width, f32, batch 2 at 1024x1024):
+    (a) on every machine, ``spatial_sharded`` over the first card as one
+    shard and as two, and at H = ``SHARDED_H`` over 2 and 4 shards of it,
+    and ``batch_sharded`` of ``SHARDED_BATCH`` over 2, each against the
+    single-process predict in this process at phase 11 (a)'s bounds, with
+    the halo exchanges of a predict (phase 11 (a)'s), no covariance launch
+    and the median times; a shard made to fail ends the call with its own exception within
+    ``SHARD_FAIL_S`` and leaves no shard thread, nor does a closed wrapper;
+    (b) where more cards are
+    visible, the same over every card, with times against one card and
+    against phase 11 (a)'s gloo ranks."""
+    from wt_pse_tpu_torch.models.layers import Conv2d
+    from wt_pse_tpu_torch.parallel.collectives import halo_rows
+    from wt_pse_tpu_torch.parallel.mesh import data_mesh
+    from wt_pse_tpu_torch.parallel.spatial import batch_sharded, nets_on, spatial_sharded
+    from wt_pse_tpu_torch.train.eval import make_predict_fn
+
+    nets = spatial_nets(dev)
+    images = {"square": spatial_image(dev), "tall": spatial_image(dev, SHARDED_H)}
+    b, hw = SHARDED_BATCH
+    images["chunk"] = torch.from_numpy(
+        np.random.RandomState(14).rand(b, 3, hw, hw).astype(np.float32) * 2 - 1).to(dev)
+    lift = median_lift(nets, images["square"], dev)
+    with torch.no_grad():
+        nets[0].outc[0].bias += lift
+    single = make_predict_fn(*nets, device=dev)
+    wants, single_ms = {}, {}
+    zero_counts(cc)
+    for key, img in images.items():
+        out, times = time_predicts(single, img, n=3 if key == "square" else 2)
+        wants[key] = [o.cpu().numpy() for o in out]
+        single_ms[key] = statistics.median(times) * 1e3
+    expect_counts(read_counts(cc), 0, 0, "phase 14 single-process predicts")
+    log(f"phase 14 single-process predict on {card_line()}, median ms: {json.dumps(single_ms)} "
+        f"(square: 2 x {SPATIAL_HW}x{SPATIAL_HW}; tall: 2 x {SHARDED_H}x{SPATIAL_HW}; chunk: "
+        f"{b} x {hw}x{hw})")
+    want_x = p11["ranks_2"]["exchanges"] if p11 else None
+
+    def predict_for(d):
+        return make_predict_fn(*nets_on(nets, d), device=d)
+
+    def run(what: str, wrap, devices: list, key: str) -> dict:
+        nonlocal want_x
+        mesh = data_mesh(devices=devices)
+        predict = wrap(predict_for, mesh)
+        zero_counts(cc)
+        before = halo_rows.exchanges
+        (od, oc), _ = timed(lambda: predict(images[key]))  # cuDNN picks for each slab
+        exchanges, launches = halo_rows.exchanges - before, read_counts(cc)
+        times = [timed(lambda: predict(images[key]))[1] * 1e3
+                 for _ in range(3 if key == "square" else 2)]
+        held = hold_two_stage(od.cpu().numpy(), oc.cpu().numpy(), *wants[key])
+        sharded = wrap is spatial_sharded
+        if sharded and want_x is None:
+            want_x = exchanges
+        rec = {**held, "exchanges": exchanges, "ms": times, "median_ms": statistics.median(times),
+               "single_ms": single_ms[key], "profile": profile_predict(predict, images[key])}
+        predict.close()
+        log(f"phase 14 {what}: {json.dumps(rec)}; covariance launches {launches}")
+        expect_counts(launches, 0, 0, f"phase 14 {what}")
+        if held["od_err_of_bound"] > 1.0 or held["oc_err_of_bound"] > 1.0 or \
+                held["flipped"] > 1e-4 * held["pixels"] or od.device != mesh.devices[0] or \
+                exchanges != (want_x if sharded else 0):
+            raise SystemExit(f"phase 14 {what}: disagrees with the single-process predict, or "
+                             f"made {exchanges} halo exchanges (want {want_x if sharded else 0})")
+        return rec
+
+    out = {}
+    for name, wrap, devices, key in (
+            ("(a) spatial_sharded over [card 0]", spatial_sharded, [dev], "square"),
+            ("(a) spatial_sharded over [card 0, card 0]", spatial_sharded, [dev] * 2, "square"),
+            (f"(a) spatial_sharded at H = {SHARDED_H} over 2 shards of card 0", spatial_sharded,
+             [dev] * 2, "tall"),
+            (f"(a) spatial_sharded at H = {SHARDED_H} over 4 shards of card 0", spatial_sharded,
+             [dev] * 4, "tall"),
+            (f"(a) batch_sharded of {b} over 2 shards of card 0", batch_sharded, [dev] * 2,
+             "chunk")):
+        out[name] = run(name, wrap, devices, key)
+
+    if shard_threads():
+        raise SystemExit(f"phase 14 (a): shard threads outlive their closed wrappers: "
+                         f"{shard_threads()}")
+
+    # a shard made to fail, at its OD net's fifth 3x3 conv
+    made = []
+
+    def failing_for(d):
+        copies = nets_on(nets, d)
+        if len(made) == 1:
+            convs = [m for m in copies[0].modules()
+                     if isinstance(m, Conv2d) and m.kernel_size == (3, 3)]
+            convs[4].register_forward_pre_hook(_fail_at_fifth_conv)
+        made.append(d)
+        return make_predict_fn(*copies, device=d)
+
+    failing = spatial_sharded(failing_for, data_mesh(devices=[dev] * 2))
+    t0 = time.perf_counter()
+    try:
+        failing(images["square"][:, :, :256, :256])
+        raised = None
+    except ShardFailure as e:
+        raised = e
+    t_fail = time.perf_counter() - t0
+    left = shard_threads()
+    log(f"phase 14 (a) a shard made to fail: raised {raised!r} in {t_fail:.3f} s "
+        f"(bound {SHARD_FAIL_S} s); shard threads left {len(left)}")
+    if raised is None or t_fail > SHARD_FAIL_S or left:
+        raise SystemExit("phase 14 (a): the failing shard did not end the call with its own "
+                         "exception in time, or left threads")
+    out["fail_s"] = t_fail
+
+    # (b) every visible card
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"phase 14 (b) did not run: {n} card visible (it needs two or more)")
+        return out
+    cards = [torch.device("cuda", i) for i in range(n)]
+    log(f"phase 14 (b) peer access between the cards: " + json.dumps(
+        {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+         for i in range(n) for j in range(n) if i != j}))
+    for name, wrap, key in ((f"(b) spatial_sharded over {n} cards", spatial_sharded, "square"),
+                            (f"(b) spatial_sharded at H = {SHARDED_H} over {n} cards",
+                             spatial_sharded, "tall"),
+                            (f"(b) batch_sharded of {b} over {n} cards", batch_sharded, "chunk")):
+        out[name] = run(name, wrap, cards, key)
+    one = out["(a) spatial_sharded over [card 0]"]["median_ms"]
+    many = out[f"(b) spatial_sharded over {n} cards"]["median_ms"]
+    gloo = {f"{w} gloo ranks": statistics.median(p11[f"ranks_{w}"]["seconds"][0]) * 1e3
+            for w in SPATIAL_WORLDS} if p11 else "phase 11 did not run"
+    log(f"phase 14 (b) on {card_line()}: 2 x {SPATIAL_HW}x{SPATIAL_HW} over {n} cards in one "
+        f"process {many:.1f} ms against one card {one:.1f} ms as one shard and "
+        f"{single_ms['square']:.1f} ms unsharded ({one / many:.2f}x, {single_ms['square'] / many:.2f}x); "
+        f"phase 11 (a)'s ranks sharing one card, rank 0's median ms: "
+        f"{json.dumps(gloo) if isinstance(gloo, dict) else gloo}")
     return out
 
 
@@ -2520,13 +2704,13 @@ PHASE_NEEDS = {5: {2}, 7: {6}, 8: {4, 6}, 9: {6}, 12: {6}}
 
 
 def phases_to_run(argv: list) -> set:
-    """Every phase (2-13) with no arguments, as the script is run to hold the
+    """Every phase (2-14) with no arguments, as the script is run to hold the
     port; ``--phases N ...`` runs those and the phases they read, for a
     shorter run (the ``kernels`` line needs phases 2, 4, 5, 6 and 8)."""
     if not argv:
-        return set(range(2, 14))
-    if argv[0] != "--phases" or not all(a.isdigit() and 2 <= int(a) <= 13 for a in argv[1:]):
-        raise SystemExit("usage: python3 chip_smoke.py [--phases N ...]   (N in 2..13)")
+        return set(range(2, 15))
+    if argv[0] != "--phases" or not all(a.isdigit() and 2 <= int(a) <= 14 for a in argv[1:]):
+        raise SystemExit("usage: python3 chip_smoke.py [--phases N ...]   (N in 2..14)")
     want = {int(a) for a in argv[1:]}
     while True:
         more = want.union(*(PHASE_NEEDS.get(n, set()) for n in want))
@@ -2573,7 +2757,7 @@ def main() -> int:
         phase(3, check_against_cpu, dev)
     f32_step_ms = phase(4, main_path, cc, dev) if 4 in want else None
     rows = phase(5, time_kernels, cc, dev, errs) if 5 in want else None
-    p6 = p10 = p12 = bf16_launches = None
+    p6 = p10 = p11 = p12 = bf16_launches = None
     with tempfile.TemporaryDirectory() as tmp:
         if 6 in want:
             p6 = phase(6, trainer_path, cc, dev, tmp)
@@ -2586,11 +2770,13 @@ def main() -> int:
         if 10 in want:
             p10 = phase(10, dp_path, tmp)
         if 11 in want:
-            phase(11, spatial_path, cc, dev, tmp)
+            p11 = phase(11, spatial_path, cc, dev, tmp)
         if 12 in want:
             p12 = phase(12, graph_path, cc, dev, tmp, p6["train"], p6["val"])
         if 13 in want:
             phase(13, cli_path, tmp, p6)
+        if 14 in want:
+            phase(14, local_mesh_path, cc, dev, p11)
     for dtype, name in (("float32", "WT_PSE f32"), ("bfloat16", "WT_PSE bf16")):
         if p10 is None or p12 is None:
             break

@@ -23,7 +23,10 @@ sync BN over a mesh of one process on the card against the CPU at class
 ``conv``, and the DP step over a world-1 NCCL process group within rtol 2e-3
 of the plain step; ``spatial_sharded`` over 2 gloo ranks sharing the card
 against the card's unsharded predict (OD at class ``conv``, no OD pixel
-flipped, OC at class ``conv``), and the transform library on the card
+flipped, OC at class ``conv``), and over the in-process mesh of two shards
+of the card and of every card (``data_mesh(devices=...)``, the second
+skipping below two cards; 128 rows, an H that H % (16 N) refused, and
+``batch_sharded``), and the transform library on the card
 against the CPU with the same draws (``chip_smoke.extras_cases``: images at
 ``f32_reduce``, masks exact, the elastic transform and the rotation at
 ``conv``); the graphed epoch (``train/graph.py``): every replayed step trains
@@ -472,6 +475,127 @@ def test_spatial_sharded_on_two_ranks_sharing_the_card(cuda, tmp_path):
         assert held["od_err_of_bound"] <= 1 and held["oc_err_of_bound"] <= 1, held
         assert held["flipped"] == 0 and 0.05 < held["roi_share"] < 0.95, held
         assert res["exchanges"] == 106
+
+
+SHARDED_S = 180.0  # an in-process sharded predict test fails if its predicts outlast this
+
+
+def _within(seconds: float, fn):
+    """``fn()`` in a thread of its own; fails the test if it has not returned
+    within ``seconds`` (a shard waiting on a barrier would otherwise wait
+    for the barrier's own timeout)."""
+    import threading
+
+    box = {}
+
+    def target():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # re-raised in the test's thread
+            box["err"] = e
+
+    t = threading.Thread(target=target, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        pytest.fail(f"the sharded predicts did not return within {seconds} s")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def _local_mesh_predicts_match(cuda, devices: list) -> None:
+    """``spatial_sharded`` over the in-process mesh of ``devices`` at 128x128
+    and at an H that H % (16 N) refused, and ``batch_sharded`` of 5 images,
+    against the single-process predict on the first card: OD at class
+    ``conv``, at most 1 in 10^4 OD pixels thresholded the other way, OC at
+    class ``conv`` beyond the OC stage's reach, the halo exchanges of a
+    predict, the outputs on the mesh's first device."""
+    import chip_smoke as cs
+    from wt_pse_tpu_torch.parallel.collectives import halo_rows
+    from wt_pse_tpu_torch.parallel.mesh import data_mesh
+    from wt_pse_tpu_torch.parallel.spatial import batch_sharded, nets_on, spatial_sharded
+    from wt_pse_tpu_torch.train.eval import make_predict_fn
+
+    n = len(devices)
+    r = np.random.RandomState(3)
+    images = {h: torch.from_numpy(r.rand(b, 3, h, 128).astype(np.float32) * 2 - 1).to(cuda)
+              for b, h in ((1, 128), (1, 16 * (2 * n + 1)), (5, 64))}
+    nets = cs.spatial_nets(cuda, cs.median_lift(cs.spatial_nets(cuda), images[128], cuda))
+    single = make_predict_fn(*nets, device=cuda)
+    mesh = data_mesh(devices=devices)
+    wraps = [(wrap, wrap(lambda d: make_predict_fn(*nets_on(nets, d), device=d), mesh))
+             for wrap in (spatial_sharded, batch_sharded)]
+
+    def run():
+        out = []
+        for h, img in images.items():
+            wrap, predict = wraps[h == 64]
+            before = halo_rows.exchanges
+            od, oc = predict(img)
+            out.append((h, od, oc, halo_rows.exchanges - before, single(img)))
+        return out
+
+    done = _within(SHARDED_S, run)
+    for _, predict in wraps:
+        predict.close()
+    for h, od, oc, exchanges, (want_od, want_oc) in done:
+        assert od.device == mesh.devices[0] and oc.device == mesh.devices[0]
+        held = cs.hold_two_stage(od.cpu().numpy(), oc.cpu().numpy(), want_od.cpu().numpy(),
+                                 want_oc.cpu().numpy())
+        assert held["od_err_of_bound"] <= 1 and held["oc_err_of_bound"] <= 1, (h, held)
+        assert held["flipped"] <= 1e-4 * held["pixels"], (h, held)
+        assert exchanges == (0 if h == 64 else 106), (h, exchanges)
+
+
+def test_sharded_predicts_over_two_shards_of_the_card_in_one_process(cuda):
+    """The in-process mesh ``[cuda:0, cuda:0]``: two shard threads on the card."""
+    _local_mesh_predicts_match(cuda, [torch.device("cuda", 0)] * 2)
+
+
+def test_sharded_predicts_over_every_card_in_one_process(cuda):
+    """The in-process mesh of every visible card, one shard thread a card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards (one shard a card); this machine has {n}")
+    _local_mesh_predicts_match(cuda, [torch.device("cuda", i) for i in range(n)])
+
+
+def test_spatial_sharded_over_more_nccl_ranks_than_row_blocks(cuda, tmp_path):
+    """``spatial_sharded`` over one NCCL rank a card on every card (three or
+    more) at H = 32 (two 16-row blocks), then at H = 48 (three): the ranks
+    past the last block hold no rows, and the others exchange over a
+    sub-group of the first ranks. NCCL splits that group from the world's
+    communicator, so every rank makes it, in the same order; one that did
+    not would leave the others waiting. Every rank gets the unsharded
+    predict on the card: OD at class ``conv`` with no OD pixel thresholded
+    the other way, OC at class ``conv``."""
+    import chip_smoke as cs
+    import torch_dp_worker as W
+    from wt_pse_tpu_torch.parallel.distributed import run_local_ranks
+    from wt_pse_tpu_torch.train.eval import make_predict_fn
+
+    n = torch.cuda.device_count()
+    if n < 3:
+        pytest.skip(f"needs three or more cards (one NCCL rank a card, more ranks than the "
+                    f"two 16-row blocks of H = 32); this machine has {n}")
+    r = np.random.RandomState(5)
+    images = [torch.from_numpy(r.rand(1, 3, h, h).astype(np.float32) * 2 - 1) for h in (32, 48)]
+    nets = cs.spatial_nets(cuda, cs.median_lift(cs.spatial_nets(cuda), images[1].to(cuda), cuda))
+    sds = [{k: v.cpu().numpy() for k, v in net.state_dict().items()} for net in nets]
+    cases = [("WT_PSE", None, sds, img.numpy()) for img in images]
+    ranks = run_local_ranks(W.spatial_rank, n, f"file://{tmp_path}/rdzv", (cases, "cuda"),
+                            backend="nccl", local_rank=None, timeout_s=300)
+    for img, got in zip(images, zip(*ranks)):
+        with torch.no_grad():
+            want_od, want_oc = make_predict_fn(*nets, device=cuda)(img.to(cuda))
+        holding = img.shape[2] // 16
+        for rank, res in enumerate(got):
+            held = cs.hold_two_stage(res["od"], res["oc"], want_od.cpu().numpy(),
+                                     want_oc.cpu().numpy())
+            assert held["od_err_of_bound"] <= 1 and held["oc_err_of_bound"] <= 1, (rank, held)
+            assert held["flipped"] == 0, (rank, held)
+            assert res["exchanges"] == (106 if rank < holding else 0), (rank, res["exchanges"])
 
 
 def test_the_transform_library_on_the_card_matches_the_cpu(cuda):

@@ -15,9 +15,18 @@ the CPU over gloo ranks spawned by ``run_local_ranks``.
   stage's reach (170 pixels) from any of them. JAX's bf16 nets differ from the port's
   by 5-10% of their scale (``ROADMAP.md``, Queue 3), so the bf16 case is held
   against the port's unsharded bf16 predict only.
+- Uneven slabs (``parallel/spatial.py::slab_rows``, whole 16-row blocks):
+  2 ranks at H = 48 (32 and 16 rows) and 3 ranks at H = 32, where rank 2
+  holds no rows and the other two exchange over their own sub-group; 4
+  ranks at H = 32 and then at H = 48, where the sub-group of 3 is made
+  after ranks 2 and 3 sat out the sub-group of 2 (every rank makes every
+  sub-group, in the same order, or the next group's ranks disagree); and
+  the three (H, N) that the port refused before slabs of any multiple of 16
+  rows, (48, 2), (64, 8) and (96, 4), over CPU shards of one process
+  (``data_mesh(devices=...)``), all against the unsharded predict.
 - Every 3x3 conv and every upsample of both predicts takes its rows through
   the exchange (a mesh of one process, traced), the exchanges a predict are
-  counted, H % (16 N) != 0 raises, and outside the context the layers run
+  counted, H % 16 != 0 raises, and outside the context the layers run
   today's code bit for bit.
 """
 
@@ -42,8 +51,9 @@ from wt_pse_tpu.train.eval import make_predict_fn_joint as jax_predict_fn_joint
 from wt_pse_tpu_torch.config import JOINT, default_hparams
 from wt_pse_tpu_torch.models import layers
 from wt_pse_tpu_torch.models.common import ModelConfig
-from wt_pse_tpu_torch.parallel.mesh import DataMesh
-from wt_pse_tpu_torch.parallel.spatial import spatial_sharded
+from wt_pse_tpu_torch.parallel.collectives import halo_rows
+from wt_pse_tpu_torch.parallel.mesh import DataMesh, data_mesh
+from wt_pse_tpu_torch.parallel.spatial import nets_on, spatial_sharded
 from wt_pse_tpu_torch.train.eval import make_predict_fn_for
 from wt_pse_tpu_torch.train.state import init_ensemble
 
@@ -54,6 +64,11 @@ from torch_port import CONV, assert_close, nchw, torch_single_thread  # noqa: F4
 # (algorithm, compute dtype, ranks, H = W, batch)
 CASES = [("WT_PSE", None, 2, 64, 2), (JOINT, None, 2, 64, 2), ("WT_PSE", "bfloat16", 2, 64, 1),
          ("WT_PSE", None, 4, 128, 1)]
+# uneven slabs over gloo ranks: 32 + 16 rows; 16 + 16 + none; in one world of
+# 4, 16 + 16 + none + none and then 16 + 16 + 16 + none, so that the second
+# sub-group is made after a predict in which ranks 2 and 3 held no rows
+UNEVEN = [("WT_PSE", None, 2, 48, 1), ("WT_PSE", None, 3, 32, 1), ("WT_PSE", None, 4, 32, 1),
+          ("WT_PSE", None, 4, 48, 1)]
 # halo exchanges a two-stage predict: a 3x3 conv or an upsample each. WT_PSE, a
 # stage: the U-Net's 22 convs and 4 upsamples, the student's DeepWT 4 convs,
 # trunk 19 and 4 upsamples. The joint variant (whitening off), a stage: the
@@ -107,11 +122,12 @@ def _image(b, hw, seed=0):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every case sharded (2-rank cases in one world, the 4-rank case in
-    another), with the port's unsharded predict and JAX's."""
+    """Every case sharded (the cases of each number of ranks in one world),
+    with the port's unsharded predict and, for ``CASES``, JAX's."""
     tmp = tmp_path_factory.mktemp("spatial")
+    cases = CASES + UNEVEN
     prepared = []
-    for algorithm, dtype, world, hw, b in CASES:
+    for algorithm, dtype, world, hw, b in cases:
         nets = _port_nets(algorithm, dtype)
         img = _image(b, hw)
         with torch.no_grad():
@@ -119,20 +135,20 @@ def runs(tmp_path_factory):
         sds = [{k: v.numpy().copy() for k, v in n.state_dict().items()} for n in nets]
         prepared.append(((algorithm, dtype, sds, nchw(img).numpy()), base, img))
     results = {}
-    for world in (2, 4):
-        idx = [i for i, c in enumerate(CASES) if c[2] == world]
+    for world in (2, 3, 4):
+        idx = [i for i, c in enumerate(cases) if c[2] == world]
         per_rank = W.run(W.spatial_rank, tmp, [prepared[i][0] for i in idx], world=world)
         for j, i in enumerate(idx):
             results[i] = [r[j] for r in per_rank]
     out = {}
-    for i, (algorithm, dtype, world, hw, b) in enumerate(CASES):
+    for i, (algorithm, dtype, world, hw, b) in enumerate(cases):
         jax_out = None
-        if dtype is None:
+        if dtype is None and cases[i] in CASES:
             jnets = _jax_nets(algorithm)
             predict = (jax_predict_fn_joint(jnets[0], jnets[2]) if algorithm == JOINT
                        else jax_predict_fn(*jnets))
             jax_out = predict(*_jax_variables(algorithm), jnp.asarray(prepared[i][2]))
-        out[CASES[i]] = (results[i], prepared[i][1], jax_out)
+        out[cases[i]] = (results[i], prepared[i][1], jax_out)
     return out
 
 
@@ -159,6 +175,19 @@ def test_spatial_sharded_matches_the_unsharded_predict(runs, case):
         assert res["exchanges"] == EXCHANGES[case[0]]
         np.testing.assert_array_equal(res["od"], ranks[0]["od"])  # every rank holds it all
     assert 0.02 < held["roi_share"] < 0.9, held  # both stages see image and background
+
+
+@pytest.mark.parametrize("case", UNEVEN, ids=lambda c: f"{c[2]}x{c[3]}")
+def test_uneven_slabs_over_gloo_ranks_match_the_unsharded_predict(runs, case):
+    ranks, (base_od, base_oc), _ = runs[case]
+    world, hw = case[2], case[3]
+    holding = min(world, hw // 16)  # ranks with a slab; the rest sit out the exchanges
+    for rank, res in enumerate(ranks):
+        assert res["od"].shape == tuple(base_od.shape)
+        _hold(res["od"], res["oc"], base_od, base_oc, f"rank {rank}", 0)
+        assert res["exchanges"] == (EXCHANGES[case[0]] if rank < holding else 0)
+        np.testing.assert_array_equal(res["od"], ranks[0]["od"])
+        np.testing.assert_array_equal(res["oc"], ranks[0]["oc"])
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[1] is None],
@@ -233,11 +262,32 @@ def test_every_conv_and_upsample_takes_its_rows_through_the_exchange(monkeypatch
     assert_close(oc.numpy(), base_oc.numpy(), CONV, "oc")
 
 
-@pytest.mark.parametrize("h,n", [(48, 2), (64, 8), (100, 1), (96, 4)])
+@pytest.mark.parametrize("h,n", [(40, 2), (72, 4), (100, 1), (24, 1)])
 def test_rows_not_a_multiple_of_16_n_raise(h, n):
+    """Only the U-Net's own rule is left, H % 16 == 0, as under GSPMD."""
     mesh = DataMesh(None, 0, n, torch.device("cpu"))
-    with pytest.raises(ValueError, match=f"H % {16 * n} == 0"):
+    with pytest.raises(ValueError, match="H % 16 == 0"):
         spatial_sharded(lambda x: (x,), mesh)(torch.zeros(1, 3, h, 32))
+
+
+@pytest.mark.parametrize("h,n", [(48, 2), (64, 8), (96, 4)])
+def test_rows_the_old_rule_refused_predict(h, n):
+    """The (H, N) that H % (16 N) refused, over ``n`` CPU shards of one
+    process: slabs of 32 + 16 rows; 4 of 16 and 4 idle shards; 32 + 32 +
+    16 + 16. Against the unsharded predict at the bounds of
+    ``test_spatial_sharded_matches_the_unsharded_predict``."""
+    nets = _port_nets("WT_PSE", None)
+    img = nchw(np.random.RandomState(h).rand(1, h, 32, 3).astype(np.float32) * 2 - 1)
+    base_od, base_oc = make_predict_fn_for("WT_PSE", nets, device="cpu")(img)
+    predict = spatial_sharded(
+        lambda dev: make_predict_fn_for("WT_PSE", nets_on(nets, dev), device=dev),
+        data_mesh(devices=["cpu"] * n))
+    before = halo_rows.exchanges
+    od, oc = predict(img)
+    predict.close()
+    assert halo_rows.exchanges - before == EXCHANGES["WT_PSE"]
+    assert od.shape == base_od.shape
+    _hold(od, oc, base_od, base_oc, f"H = {h} over {n} shards", 0)
 
 
 def _conv_before(conv, x):

@@ -12,6 +12,7 @@ from torch import nn
 
 from wt_pse_tpu_torch.config.hparams import COMPUTE_DTYPES
 from wt_pse_tpu_torch.models.layers import BatchNorm2d, init_like_flax_
+from wt_pse_tpu_torch.parallel.mesh import refuse_local
 from wt_pse_tpu_torch.runtime import resolve_device
 
 
@@ -66,6 +67,7 @@ def place(module: nn.Module, device: str | torch.device,
     a generator seeded with 0), hand its BatchNorm layers ``bn_mesh`` (sync
     BN under data parallelism; None: plain BatchNorm) and move it to
     ``device``."""
+    refuse_local(bn_mesh, "sync BatchNorm (ModelConfig.bn_mesh)")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_like_flax_(module, generator)

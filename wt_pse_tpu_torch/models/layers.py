@@ -55,13 +55,16 @@ where JAX's GSPMD inserts its halo exchanges:
 
 1x1 convs, BatchNorm in eval mode, ReLU, sigmoid and concat are pointwise,
 and a 2x2 max-pool needs nothing while every slab starts on an even row at
-every level (``spatial_sharded`` requires H % (16 N) == 0). Outside the
-context every layer runs as it did without it.
+every level (``spatial_sharded`` deals out slabs of whole 16-row blocks).
+The context is per thread (a ``ContextVar``): each shard of an in-process
+mesh runs in a thread of its own with its own view. Outside the context
+every layer runs as it did without it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 from typing import Sequence
 
@@ -71,8 +74,9 @@ from torch import nn
 
 from wt_pse_tpu_torch.parallel.collectives import all_reduce_sum, halo_rows
 
-# the mesh whose ranks hold the slabs of an image's rows inside row_shard, or None
-_ROW_MESH = None
+# the mesh whose ranks hold the slabs of an image's rows inside row_shard, or
+# None; each thread sees its own
+_ROW_MESH = contextvars.ContextVar("row_mesh", default=None)
 
 
 @contextlib.contextmanager
@@ -81,13 +85,13 @@ def row_shard(mesh):
     images split along H over ``mesh``'s ranks in rank order, and the 3x3
     convs and the upsample exchange rows with the neighbouring ranks (module
     docstring). Every rank of the mesh must run the same layers in the
-    context: each exchange is a collective."""
-    global _ROW_MESH
-    prev, _ROW_MESH = _ROW_MESH, mesh
+    context: each exchange is a collective. The context holds in the
+    calling thread only."""
+    token = _ROW_MESH.set(mesh)
     try:
         yield
     finally:
-        _ROW_MESH = prev
+        _ROW_MESH.reset(token)
 
 
 # flax.linen.initializers.lecun_normal: truncated normal on [-2, 2] standard
@@ -107,8 +111,9 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         padding = self.padding
-        if _ROW_MESH is not None and padding[0]:  # a slab: the neighbours' rows
-            x = halo_rows(x, _ROW_MESH, "zero")
+        mesh = _ROW_MESH.get()
+        if mesh is not None and padding[0]:  # a slab: the neighbours' rows
+            x = halo_rows(x, mesh, "zero")
             padding = (0, padding[1])
         dt = self.compute_dtype
         if dt is None:
@@ -175,8 +180,9 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     its input (``layers.py:227-231``), so f64 nets round there as JAX's do.
     Inside :func:`row_shard`, a slab is resized with a neighbour row on each
     side and the two output rows each side that they make are dropped."""
-    if _ROW_MESH is not None:
-        return _upsample2x(halo_rows(x, _ROW_MESH, "replicate"))[:, :, 2:-2]
+    mesh = _ROW_MESH.get()
+    if mesh is not None:
+        return _upsample2x(halo_rows(x, mesh, "replicate"))[:, :, 2:-2]
     return _upsample2x(x)
 
 

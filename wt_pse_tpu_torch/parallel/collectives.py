@@ -6,7 +6,11 @@ Everything is built from ``all_reduce`` (sum) and ``broadcast``: gloo takes
 CUDA tensors for those two only, and the port's data parallelism must run
 over NCCL on the cards and over gloo on the CPU, or on one card shared by
 two ranks (NCCL refuses two ranks on one card). On a mesh without a process
-group (one process), each collective is the identity.
+group (one process), each collective is the identity. On a shard's view of
+a mesh of one process's devices (``parallel/mesh.py::LocalMesh``), each runs
+over that mesh's in-process group: a sum of every shard's deposit in rank
+order, on each shard's own device, between two barriers
+(``LocalGroup.sum_``).
 
 Gradients: :func:`all_reduce_sum`'s backward is the all-reduce-sum of the
 cotangent, and :func:`all_gather_rows`'s is that sum sliced to this rank's
@@ -35,15 +39,19 @@ inside one.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.distributed as dist
 
-from wt_pse_tpu_torch.parallel.mesh import DataMesh
+from wt_pse_tpu_torch.parallel.mesh import DataMesh, LocalGroup
 
 
 def _sum_(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     """In-place all-reduce-sum of ``t`` over the mesh; returns ``t``."""
-    if mesh.group is not None:
+    if isinstance(mesh.group, LocalGroup):
+        mesh.group.sum_(t, mesh.rank)
+    elif mesh.group is not None:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
     return t
 
@@ -83,8 +91,9 @@ def halo_rows(x: torch.Tensor, mesh: DataMesh, fill: str) -> torch.Tensor:
     One all-reduce: each rank writes its first and last row into its own
     slot of a zero buffer, so each sum adds one value to zeros (exact), and
     reads its neighbours' slots. The buffer is at least f32 (gloo reduces
-    no bf16 on every build; the widening is exact). Each exchange over a
-    process group adds one to ``halo_rows.exchanges``."""
+    no bf16 on every build; the widening is exact). Each exchange adds one
+    to ``halo_rows.exchanges``: each process counts its own over a process
+    group, and the shards of an in-process group count one together."""
     if fill not in ("zero", "replicate"):
         raise ValueError(f"fill={fill!r}: 'zero' or 'replicate'")
     first, last = x[:, :, :1], x[:, :, -1:]
@@ -95,7 +104,9 @@ def halo_rows(x: torch.Tensor, mesh: DataMesh, fill: str) -> torch.Tensor:
         slots[mesh.rank, 0] = first
         slots[mesh.rank, 1] = last
         _sum_(slots, mesh)
-        halo_rows.exchanges += 1
+        if mesh.rank == 0 or not isinstance(mesh.group, LocalGroup):
+            with _EXCHANGES_LOCK:
+                halo_rows.exchanges += 1
         slots = slots.to(x.dtype)
         if mesh.rank > 0:
             above = slots[mesh.rank - 1, 1]
@@ -109,6 +120,7 @@ def halo_rows(x: torch.Tensor, mesh: DataMesh, fill: str) -> torch.Tensor:
 
 
 halo_rows.exchanges = 0
+_EXCHANGES_LOCK = threading.Lock()  # the shards of several predicts may count at once
 
 
 def mean_grads_(params, mesh: DataMesh) -> None:
@@ -140,6 +152,8 @@ def broadcast_floats(values: list[float], mesh: DataMesh) -> list[float]:
     if mesh.group is None:
         return list(values)
     t = torch.tensor(values, dtype=torch.float64, device=mesh.device)
+    if isinstance(mesh.group, LocalGroup):  # rank 0's values summed with zeros: exact
+        return _sum_(t if mesh.rank == 0 else torch.zeros_like(t), mesh).tolist()
     dist.broadcast(t, src=0, group=mesh.group)  # a mesh's rank 0 is global rank 0
     return t.tolist()
 

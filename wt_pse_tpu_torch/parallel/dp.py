@@ -27,7 +27,7 @@ import torch
 
 from wt_pse_tpu_torch.data.augment import make_device_batch_fn
 from wt_pse_tpu_torch.parallel.collectives import mean_values
-from wt_pse_tpu_torch.parallel.mesh import DataMesh
+from wt_pse_tpu_torch.parallel.mesh import DataMesh, refuse_local
 from wt_pse_tpu_torch.train.step import StepConfig, make_train_step
 
 
@@ -63,6 +63,7 @@ def make_dp_fused(nets, hparams: dict, mesh: DataMesh, domain_num: int,
     ``mesh`` (``ModelConfig(bn_mesh=mesh)``): their running statistics would
     drift apart from rank to rank. ``distill=False`` is the joint variant's
     step."""
+    refuse_local(mesh, "make_dp_fused")
     n = mesh.size
     if per_domain_batch_global % n:
         raise ValueError(f"per-domain batch {per_domain_batch_global} not divisible by "
