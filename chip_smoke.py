@@ -511,7 +511,7 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_steps(step, state, batch, gen, step_ms: float, n: int = 2) -> None:
+def profile_eager_steps(step, state, batch, gen, step_ms: float, n: int = 2) -> None:
     """Device time by kernel over ``n`` steady traced steps, by layer
     (``KERNEL_GROUPS``), and the device's busy share of ``step_ms``, the
     untraced steady step time."""
@@ -588,7 +588,7 @@ def main_path(cc, dev) -> float:
     log(f"covariance launches over the {STEPS} steps: {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     expect_counts(launches, 8 * STEPS, 0, "phase 4")
-    profile_steps(step, state, batch, gen, steady_ms)
+    profile_eager_steps(step, state, batch, gen, steady_ms)
 
     # the maps in train mode, as the step makes them; the BatchNorm running
     # statistics that this forward updates are put back before the predict
@@ -665,7 +665,6 @@ def trainer_path(cc, dev, tmp: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from wt_pse_tpu_torch.config import default_hparams
-    from wt_pse_tpu_torch.data.augment import BATCH_RANGE
     from wt_pse_tpu_torch.io.checkpoint import (load_reference_checkpoint,
                                                 restore_ensemble, save_ensemble)
     from wt_pse_tpu_torch.models.common import ModelConfig
@@ -784,6 +783,8 @@ def trainer_path(cc, dev, tmp: str) -> dict:
     if not same:
         raise SystemExit("the graphed run's checkpoint resumes otherwise under the loop")
     del loop
+    if resumed.scan_epochs:
+        resumed.start_device_spans()  # the sampler's span inside the graph
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         resumed.train()
@@ -794,17 +795,22 @@ def trainer_path(cc, dev, tmp: str) -> dict:
         raise SystemExit(f"the resumed run logged {rows}, not one row of epoch {n}")
     busy, window, _, _ = device_time(prof)
     if resumed.scan_epochs:
-        # the range is host-side: a graph records it once, at capture
-        batch = "sampling and augmentation inside the replayed graph (no range: not measured)"
+        # the device span of the sampler, stamped inside the replayed graph
+        rec = resumed.tracer.stamped[-1]
+        sample = np.diff(rec.stamps, axis=0)[rec.names.index("sample") - 1]
+        batch_us = float(sample.sum()) / 1e3
+        batch = (f"sampling and augmentation inside the replayed graph {batch_us / 1e3:.3f} ms "
+                 f"of device time ({batch_us / busy:.2%} of busy; its `sample` spans, "
+                 f"{sample.mean() / 1e6:.3f} ms a step)")
     else:
-        ranges = [e for e in prof.events() if e.name == BATCH_RANGE
+        ranges = [e for e in prof.events() if e.name == "sample"
                   and e.device_type != torch.autograd.DeviceType.CUDA]
         batch_us = sum(e.device_time_total for e in ranges)
         batch_host_us = sum(e.cpu_time_total for e in ranges)
         batch = (f"sampling and augmentation {batch_us / 1e3:.3f} ms of device time "
                  f"({batch_us / busy:.2%} of busy) and {batch_host_us / 1e3:.3f} ms of host "
                  f"time ({batch_host_us / 1e6 / resumed.epoch_seconds[0]:.2%} of the traced "
-                 "epoch)")
+                 "epoch; its `sample` spans)")
     log(f"resumed at epoch {n} (best objective {best['objective']:.6f} restored, driver "
         f"{'graph' if resumed.scan_epochs else 'eager'}), one more epoch traced: "
         f"{resumed.epoch_seconds[0]:.3f} s traced; device busy "
@@ -845,6 +851,17 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def spans_of(fn):
+    """(result, seconds by name of its spans) of ``fn(tracer=...)`` run in
+    a ``validate`` span of a tracer of its own (``utils/trace.py``)."""
+    from wt_pse_tpu_torch.utils.trace import Tracer
+
+    tracer = Tracer()
+    with tracer.span("validate") as span:
+        out = fn(tracer=tracer)
+    return out, tracer.child_seconds(span)
 
 
 def write_test_split(root: str, val) -> None:
@@ -964,10 +981,9 @@ def eval_path(cc, dev, tmp: str, p6: dict) -> None:
     fast_nets = tuple(ns.net for ns in fast.state.net_states())
     fast_predict = make_predict_fn(*fast_nets, device=dev)
     fast_again, t_fast = timed(fast.validate)
-    host_t: dict[str, float] = {}
-    host_val, t_host = timed(lambda: evaluate_domain(
-        fast_predict, fast.val_images, fast.val_od, fast.val_oc, "OD", 8, timings=host_t,
-        backend="native"))
+    (host_val, host_t), t_host = timed(lambda: spans_of(lambda tracer: evaluate_domain(
+        fast_predict, fast.val_images, fast.val_od, fast.val_oc, "OD", 8, tracer=tracer,
+        backend="native")))
     log(f"phase 7 (c): resumed at epoch {n}, one epoch of {steps} steps; fast validation "
         f"{fast.validation_seconds[0]['device']:.3f} s in train(), again {t_fast:.3f} s "
         f"(objective {fast_again['objective']:.6f}, scored on {fast.scoring_backend}); host "
@@ -994,10 +1010,9 @@ def eval_path(cc, dev, tmp: str, p6: dict) -> None:
     dom_images = torch.from_numpy(np.asarray(domain.images)).to(dev)
     direct = evaluate_domain(cli_predict, dom_images, [m[0] for m in masks],
                              [m[1] for m in masks], "OD", 8, backend="native")
-    dev_t: dict[str, float] = {}
-    on_card, t_dev = timed(lambda: evaluate_domain(
+    (on_card, dev_t), t_dev = timed(lambda: spans_of(lambda tracer: evaluate_domain(
         cli_predict, dom_images, [m[0] for m in masks], [m[1] for m in masks], "OD", 8,
-        timings=dev_t, resize="device", backend="native"))
+        tracer=tracer, resize="device", backend="native")))
     chunk = dom_images[5:].permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
     lg = cli_predict(chunk)[0]
     up = resize_device(lg, (640, 640)).cpu().numpy()
@@ -1135,7 +1150,7 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
     log(f"phase 8 parameter and BatchNorm statistic dtypes after the steps: {sorted(dtypes)}")
     if dtypes != {"torch.float32"}:
         raise SystemExit(f"phase 8: parameters or BN statistics left f32: {dtypes}")
-    profile_steps(step, state, batch, gen, bf16_ms)
+    profile_eager_steps(step, state, batch, gen, bf16_ms)
     # the bf16 kernels on the main path's own bf16 DeepWT maps (the OD net's)
     wt = state.od.net.wt_model
     saved = [b.clone() for b in wt.buffers()]

@@ -35,7 +35,10 @@ package's scan-vs-loop bounds (rtol 1e-4, atol 1e-6,
 ``tests/test_trainer_e2e.py:137-138``) of the default loop's and of the same
 step run eagerly with the same capturable Adam, 8 launches of each kernel a
 replay, a capture that leaves the state and the generator as they were, and
-a capture that meets a host sync raises; the graph under data parallelism
+a capture that meets a host sync raises; the step captured with its device
+marks (``utils/trace.py``) stamps every mark of every replayed step in order,
+a step captured without them runs no stamp kernel, and both pools are the
+same size; the graph under data parallelism
 (``Trainer(dp=True)`` over a world-1 NCCL group, and over one NCCL rank a
 card on a machine with two or more cards): the replayed batches equal the
 loop's, the first step within the scan-vs-loop bounds, 8 launches of each
@@ -608,10 +611,10 @@ def test_the_transform_library_on_the_card_matches_the_cpu(cuda):
         assert res["floor_max"] <= 1 and res["floor_ties"] <= 1e-3 * 64 * 64 * 3, (name, res)
 
 
-def _graph_trainers(cuda, tmp_path, hp=None):
+def _graph_trainers(cuda, tmp_path, hp=None, **kw):
     """A graphed Trainer (the default on the card) and an eager-loop one from
     one seed, on 64x64 pools of 3 domains x 4, batch 6 = 3 x 2 (2 steps an
-    epoch)."""
+    epoch); ``kw`` goes to both."""
     r = np.random.RandomState(4)
     yy, xx = np.mgrid[0:64, 0:64]
     gray = np.full((64, 64), 255, np.uint8)
@@ -621,7 +624,7 @@ def _graph_trainers(cuda, tmp_path, hp=None):
                          labels=np.stack([gray] * 4)) for _ in range(3)]
     return [Trainer(hp or default_hparams("WT_PSE"), doms, doms[0],
                     str(tmp_path / f"run_{scan}"), batch_size=6, max_epoch=2,
-                    val_visualization=False, scan_epochs=scan, device=cuda)
+                    val_visualization=False, scan_epochs=scan, device=cuda, **kw)
             for scan in (None, False)]
 
 
@@ -720,6 +723,67 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda, tmp_path):
     # the eager warm-up's launches stay counted, the failed capture's do not
     warmup = {k: 8 * WARMUP_STEPS if k[1] == "launches" else 0 for k in counts}
     assert {k: n - counts[k] for k, n in cc.launch_counts().items()} == warmup
+
+
+def test_marked_capture_replays_epochs_with_monotone_stamps(cuda, tmp_path):
+    """A Trainer with ``trace_dir`` captures its step with its 18 marks under
+    the sync debug mode "error", so no mark syncs with the host. Each
+    epoch's replays stamp every mark of every step in order on the card's
+    clock, which the epoch's brackets put inside the host's ``epoch`` span;
+    the host launches no stamp for a replay (only the brackets' 5 at each
+    end of an epoch), and ``train`` writes ``spans.json``."""
+    import json
+
+    trainer, _ = _graph_trainers(cuda, tmp_path, trace_dir=str(tmp_path / "trace"))
+    g = trainer._graph
+    assert g.marks.names[0] == "step.start" and g.marks.names[-1] == "metrics"
+    assert len(g.marks.names) == 18
+    launches = g.stamp_launches
+    trainer.train()
+    assert g.stamp_launches == launches + 2 * 2 * 5
+    assert [rec.epoch for rec in trainer.tracer.stamped] == [0, 1]
+    for rec in trainer.tracer.stamped:
+        s = rec.stamps
+        assert s.shape == (18, 2) and (s > 0).all()
+        assert (np.diff(s, axis=0) >= 0).all() and (s[0, 1:] >= s[-1, :-1]).all()
+        host = rec.to_host(s)
+        width = max(w for _, _, w in rec.clock)
+        epoch = next(e for e in trainer.tracer.closed("epoch") if e.epoch == rec.epoch)
+        assert epoch.start - width <= host.min() and host.max() <= epoch.end + width
+    doc = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    assert sum(e["name"] == "step" for e in doc["traceEvents"]) == 4
+
+
+def test_unmarked_capture_launches_no_stamp_kernel_and_marks_keep_the_pool(cuda, tmp_path):
+    """Off by default: a replay of the captured step runs no stamp kernel
+    (none in its profile) and the host launched none. Turned on
+    (``start_device_spans``, twice: the second does nothing), the step is
+    captured again with 18 stamp kernels in a replay, into a pool of the
+    same size."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, _ = _graph_trainers(cuda, tmp_path)
+    g = trainer._graph
+    assert g.marks is None and g.stamp_launches == 0
+    pool = g.pool_bytes
+
+    def stamp_kernels():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.epoch_step(0, 1)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        assert len(names) > 100
+        return sum("stamp_kernel" in n for n in names)
+
+    assert stamp_kernels() == 0
+    trainer.start_device_spans()
+    graph = g.graph
+    trainer.start_device_spans()
+    assert g.graph is graph and g.pool_bytes == pool, (g.pool_bytes, pool)
+    assert stamp_kernels() == 18
 
 
 def test_dp_trainer_over_world_one_nccl_captures_and_replays_the_loops_batches(cuda, tmp_path):

@@ -98,7 +98,7 @@ def test_trainer_on_two_ranks_trains_validates_and_rank_0_writes(tmp_path):
     domains, val = _domains(n=2, n_val=3)
     dirs = [str(tmp_path / f"rank{r}") for r in range(2)]
     kw = dict(label="OD", batch_size=6, max_epoch=4, interval_validate=4, seed=2,
-              image_size=HW, eval_batch_size=2, dp=True)
+              image_size=HW, eval_batch_size=2, dp=True, trace_dir=str(tmp_path / "trace"))
     res = run(trainer_rank, tmp_path, domains, val, dirs, kw)
     assert [(r["dp"], r["n_dev"], r["step"]) for r in res] == [(True, 2, 4)] * 2
     assert res[0]["digest"] == res[1]["digest"]
@@ -112,6 +112,11 @@ def test_trainer_on_two_ranks_trains_validates_and_rank_0_writes(tmp_path):
     assert os.path.exists(os.path.join(dirs[0], "checkpoint_4.pth.tar"))
     assert os.path.exists(os.path.join(dirs[0], "best.json"))
     assert os.path.exists(os.path.join(dirs[0], "visualization", "epoch_3.png"))
+    # rank 0 writes every rank's spans, a host track each (the loop has no device spans)
+    trace = json.load(open(tmp_path / "trace" / "spans.json"))["traceEvents"]
+    assert {(e["pid"], e["tid"]) for e in trace if e["ph"] == "X"} == {(0, 0), (1, 0)}
+    for rank in (0, 1):
+        assert sum(e["name"] == "epoch" and e["pid"] == rank for e in trace) == 4
 
 
 def test_two_rank_dp_degrades_under_auto_and_is_strict_when_explicit(tmp_path):

@@ -21,6 +21,7 @@ from wt_pse_tpu_torch import native as port_native
 from wt_pse_tpu_torch.ops import metrics as M
 from wt_pse_tpu_torch.ops import postprocess as PP
 from wt_pse_tpu_torch.train import eval as E
+from wt_pse_tpu_torch.utils.trace import Tracer
 
 from torch_port import torch_single_thread  # noqa: F401
 
@@ -112,9 +113,11 @@ def test_evaluate_domain_matches_jax_on_shared_logits(label):
     def port_predict(img):  # NCHW
         return 8.0 * img[:, 0:1], 8.0 * img[:, 1:2]
 
-    timings = {}
-    got = E.evaluate_domain(port_predict, images, od_masks, oc_masks, label, batch_size=3,
-                            timings=timings)
+    tracer = Tracer()
+    with tracer.span("validate") as validate:
+        got = E.evaluate_domain(port_predict, images, od_masks, oc_masks, label, batch_size=3,
+                                tracer=tracer)
+    timings = tracer.child_seconds(validate)
     want = JE.evaluate_domain(jax_predict, (), images, od_masks, oc_masks, label, batch_size=3)
     assert set(got) == set(want) == {"cup_dice", "disc_dice", "cup_hd", "disc_hd",
                                      "cup_asd", "disc_asd", "objective"}
@@ -199,9 +202,11 @@ def test_evaluate_domain_resize_device_scores_as_the_host():
         return 8.0 * img[:, 0:1], 8.0 * img[:, 1:2]
 
     host = E.evaluate_domain(port_predict, images, od_masks, oc_masks, "OD", batch_size=3)
-    timings = {}
-    dev = E.evaluate_domain(port_predict, images, od_masks, oc_masks, "OD", batch_size=3,
-                            timings=timings, resize="device")
+    tracer = Tracer()
+    with tracer.span("validate") as validate:
+        dev = E.evaluate_domain(port_predict, images, od_masks, oc_masks, "OD", batch_size=3,
+                                tracer=tracer, resize="device")
+    timings = tracer.child_seconds(validate)
     assert timings["upsample"] < timings["predict"]
     for k in host:
         assert dev[k] == pytest.approx(host[k], rel=1e-6, abs=1e-9), k

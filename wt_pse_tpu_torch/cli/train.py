@@ -136,6 +136,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "cards or under torchrun")
     p.add_argument("--dp-devices", type=int, default=None,
                    help="cap the data-parallel mesh at N cards (default: all visible)")
+    p.add_argument("--trace-dir", default=None,
+                   help="turn the graph's device spans on and write every span of each run "
+                        "to <dir>/run<i>/spans.json, a Chrome trace (README: Tracing) "
+                        "[addition over the reference]")
     p.add_argument("--compile-cache", default="",
                    help="accepted for flag parity and ignored: the port compiles "
                         "nothing ahead of time")
@@ -273,6 +277,8 @@ def train(args, left_argv) -> dict:
             nan_recovery=args.nan_recovery,
             dp=args.dp,
             dp_devices=args.dp_devices,
+            trace_dir=(os.path.join(args.trace_dir, f"run{run_idx}")
+                       if args.trace_dir else None),
             lr_schedule=(dict(warmup_steps=args.lr_warmup_epochs,
                               warmup_factor=args.lr_warmup_factor,
                               gamma=args.lr_gamma,

@@ -24,8 +24,6 @@ import torch
 
 from wt_pse_tpu_torch.runtime import resolve_device
 
-BATCH_RANGE = "wt_pse.sample_augment"  # the profiler range of a batch's making
-
 
 def axis_matrices(scaled: torch.Tensor, offset: torch.Tensor, size: int):
     """The interpolation matrices of one axis for a batch, each (B, size, size).
@@ -135,14 +133,14 @@ def sample_domain_batch(images_u8: torch.Tensor, labels_u8: torch.Tensor,
 def make_device_batch_fn(per_domain_batch: int, *, device: str | torch.device = "cuda"):
     """``fn(data, generator) -> batch``: sampling, augmentation and
     normalisation on ``device``. ``data`` holds ``images``, ``labels`` and
-    ``sizes`` on that device (``train/trainer.py::stack_domains``)."""
+    ``sizes`` on that device (``train/trainer.py::stack_domains``). Its
+    time is the ``sample`` span (``utils/trace.py``): a device span of the
+    graph's step, a host span of the eager loop's."""
     resolve_device(device)
 
     def fn(data: dict, generator: torch.Generator) -> dict:
-        # a named range: a profile reads the device time of the batch under it
-        with torch.profiler.record_function(BATCH_RANGE):
-            imgs, labs = sample_domain_batch(data["images"], data["labels"],
-                                             data["sizes"], per_domain_batch, generator)
-            return augment_batch(imgs, labs, generator, train=True)
+        imgs, labs = sample_domain_batch(data["images"], data["labels"],
+                                         data["sizes"], per_domain_batch, generator)
+        return augment_batch(imgs, labs, generator, train=True)
 
     return fn

@@ -49,18 +49,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/covariance.cu`` unless a library of the same source is
+def build(source: Path = SOURCE, stem: str = "covariance") -> tuple[Path, str]:
+    """Compile ``source`` (``csrc/covariance.cu`` by default) into
+    ``libwtpse_<stem>_<hash>.so`` unless a library of the same source is
     already built. Returns the library's path and the compiler's output (empty
     when nothing was compiled)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libwtpse_covariance_{digest}.so"
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libwtpse_{stem}_{digest}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"

@@ -158,6 +158,16 @@ def broadcast_floats(values: list[float], mesh: DataMesh) -> list[float]:
     return t.tolist()
 
 
+def gather_objects(obj, mesh: DataMesh) -> list | None:
+    """Every rank's ``obj`` (picklable), in rank order, on rank 0; None on
+    the others. Every rank of the mesh's process group must call it."""
+    if mesh.group is None:
+        return [obj]
+    out = [None] * mesh.size if mesh.rank == 0 else None
+    dist.gather_object(obj, out, dst=0, group=mesh.group)  # a mesh's rank 0 is global rank 0
+    return out
+
+
 def barrier(mesh: DataMesh) -> None:
     """Return once every rank of the mesh has called it: an all-reduce whose
     result is read."""

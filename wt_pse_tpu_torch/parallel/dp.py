@@ -79,8 +79,8 @@ def make_dp_fused(nets, hparams: dict, mesh: DataMesh, domain_num: int,
     step = make_train_step(StepConfig(hparams, domain_num, pdb_local, replicate_ref_quirks,
                                       distill=distill, mesh=mesh), device=device)
 
-    def train_step(state, batch, generator=None, eps=None):
-        return mean_values(step(state, batch, generator=generator, eps=eps), mesh)
+    def train_step(state, batch, generator=None, eps=None, mark=None):
+        return mean_values(step(state, batch, generator=generator, eps=eps, mark=mark), mesh)
 
     return DPStep(make_device_batch_fn(pdb_local, device=device), train_step)
 

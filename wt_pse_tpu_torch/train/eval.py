@@ -25,7 +25,6 @@ f32). The scoring runs on the host, on the native C++ operators or scipy
 from __future__ import annotations
 
 import functools
-import time
 from collections import defaultdict
 
 import numpy as np
@@ -39,6 +38,7 @@ from wt_pse_tpu_torch.models.wt_pse import WTPSE
 from wt_pse_tpu_torch.ops import metrics as M
 from wt_pse_tpu_torch.ops.postprocess import postprocess_logits
 from wt_pse_tpu_torch.runtime import resolve_device
+from wt_pse_tpu_torch.utils.trace import Tracer
 
 
 def make_predict_fn(main_od: WTPSE, stud_od: ShapeStudent, main_oc: WTPSE,
@@ -148,7 +148,7 @@ def resize_device(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 
 def evaluate_domain(predict_fn, images_u8, od_masks: list[np.ndarray],
                     oc_masks: list[np.ndarray], label: str | None = "OD",
-                    batch_size: int = 8, timings: dict | None = None,
+                    batch_size: int = 8, tracer: Tracer | None = None,
                     resize: str = "host", backend: str = "auto") -> dict[str, float]:
     """Evaluate one test domain.
 
@@ -158,11 +158,11 @@ def evaluate_domain(predict_fn, images_u8, od_masks: list[np.ndarray],
         tensor (on the card, the chunks are normalised there).
       od_masks / oc_masks: per-image native-resolution binary masks.
       label: the validation objective ('OD' / 'OC' / None), Trainer.py:269-274.
-      timings: if given, the seconds spent in the predict (to the end of its
-        device-to-host copy), the upsample and the host scoring are added
-        under ``predict``, ``upsample`` and ``score``. With
+      tracer: if given, each chunk's predict (to the end of its
+        device-to-host copy), upsample and host scoring are its spans
+        ``predict``, ``upsample`` and ``score`` (``utils/trace.py``). With
         ``resize='device'`` the upsample on the card is inside ``predict``
-        and ``upsample`` stays 0.
+        and ``upsample`` is the host's no-op.
       resize: 'host' (f64 on the host) or 'device' (:func:`resize_device`).
       backend: the scoring engine, 'auto', 'native' or 'scipy'
         (``native.scoring_backend``).
@@ -175,8 +175,8 @@ def evaluate_domain(predict_fn, images_u8, od_masks: list[np.ndarray],
     backend = native.scoring_backend(backend)
     n = len(images_u8)
     images = torch.as_tensor(images_u8)
+    tracer = tracer if tracer is not None else Tracer()
     sums = defaultdict(float)
-    spent = defaultdict(float)
     groups: dict[tuple[int, int], list[int]] = defaultdict(list)
     for i in range(n):
         groups[od_masks[i].shape[-2:]].append(i)
@@ -184,31 +184,25 @@ def evaluate_domain(predict_fn, images_u8, od_masks: list[np.ndarray],
     for native_hw, idxs in groups.items():
         for start in range(0, len(idxs), batch_size):
             chunk = idxs[start:start + batch_size]
-            t0 = time.perf_counter()
-            sel = torch.as_tensor(chunk, device=images.device)
-            img = images[sel].permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
-            out_od, out_oc = predict_fn(img)
-            if resize == "device":
-                out_od = resize_device(out_od, native_hw)
-                out_oc = resize_device(out_oc, native_hw)
-            logits = torch.stack([out_od, out_oc]).cpu().numpy()
-            t1 = time.perf_counter()
-            od_native = _resize_host(logits[0], native_hw)  # no-op after the device
-            oc_native = _resize_host(logits[1], native_hw)
-            t2 = time.perf_counter()
-            for j, i in enumerate(chunk):
-                res = _score_one(od_native[j], oc_native[j],
-                                 np.asarray(od_masks[i]).squeeze(),
-                                 np.asarray(oc_masks[i]).squeeze(), label, backend)
-                for k, v in res.items():
-                    sums[k] += v
-            spent["predict"] += t1 - t0
-            spent["upsample"] += t2 - t1
-            spent["score"] += time.perf_counter() - t2
+            with tracer.span("predict"):
+                sel = torch.as_tensor(chunk, device=images.device)
+                img = images[sel].permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
+                out_od, out_oc = predict_fn(img)
+                if resize == "device":
+                    out_od = resize_device(out_od, native_hw)
+                    out_oc = resize_device(out_oc, native_hw)
+                logits = torch.stack([out_od, out_oc]).cpu().numpy()
+            with tracer.span("upsample"):
+                od_native = _resize_host(logits[0], native_hw)  # no-op after the device
+                oc_native = _resize_host(logits[1], native_hw)
+            with tracer.span("score"):
+                for j, i in enumerate(chunk):
+                    res = _score_one(od_native[j], oc_native[j],
+                                     np.asarray(od_masks[i]).squeeze(),
+                                     np.asarray(oc_masks[i]).squeeze(), label, backend)
+                    for k, v in res.items():
+                        sums[k] += v
 
-    if timings is not None:
-        for k, v in spent.items():
-            timings[k] = timings.get(k, 0.0) + v
     out = {k: v / n for k, v in sums.items()}
     out["objective"] = objective_from_means(out, label)
     return out

@@ -19,8 +19,6 @@ runs any batch size, so no padded row exists.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -28,6 +26,7 @@ import torch.nn.functional as F
 from wt_pse_tpu_torch.ops.losses import distance_transform
 from wt_pse_tpu_torch.ops.postprocess_device import postprocess_logits_device
 from wt_pse_tpu_torch.train.eval import objective_from_means
+from wt_pse_tpu_torch.utils.trace import Tracer
 
 METRIC_KEYS = ("disc_dice", "cup_dice", "disc_asd", "cup_asd", "disc_hd", "cup_hd")
 
@@ -95,32 +94,34 @@ def device_metrics(od_logits: torch.Tensor, oc_logits: torch.Tensor,
 
 def evaluate_domain_device(predict_fn, images_u8, od_gt_256, oc_gt_256,
                            label: str | None = "OD", batch_size: int = 8,
-                           timings: dict | None = None) -> dict[str, float]:
+                           tracer: Tracer | None = None) -> dict[str, float]:
     """Validation at network resolution, on the device of ``predict_fn``.
 
     ``images_u8``: (N, H, W, 3) uint8, a numpy array or a tensor (on the
     card, the chunks are normalised there); ``od_gt_256`` / ``oc_gt_256``:
     (N, H, W) binary masks at the same resolution (the labels resized once
-    at load). ``timings``, if given, gains the seconds of the chunks under
-    ``device`` (to the end of each chunk's one device-to-host copy).
+    at load). ``tracer``, if given, records the chunks as one span,
+    ``device`` (to the end of the last chunk's one device-to-host copy;
+    ``utils/trace.py``).
     """
     n = len(images_u8)
     images = torch.as_tensor(images_u8)
     sums = dict.fromkeys(METRIC_KEYS, 0.0)
-    t0 = time.perf_counter()
-    for start in range(0, n, batch_size):
-        stop = min(start + batch_size, n)
-        img = images[start:stop].permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
-        out_od, out_oc = predict_fn(img)
-        dev = out_od.device
-        god = torch.as_tensor(np.asarray(od_gt_256[start:stop]), dtype=torch.float32, device=dev)
-        goc = torch.as_tensor(np.asarray(oc_gt_256[start:stop]), dtype=torch.float32, device=dev)
-        m = device_metrics(out_od[:, 0], out_oc[:, 0], god, goc)
-        per_item = torch.stack([m[k] for k in METRIC_KEYS]).cpu().numpy()  # the one copy
-        for j, k in enumerate(METRIC_KEYS):
-            sums[k] += float(per_item[j].sum())
-    if timings is not None:
-        timings["device"] = timings.get("device", 0.0) + time.perf_counter() - t0
+    tracer = tracer if tracer is not None else Tracer()
+    with tracer.span("device"):
+        for start in range(0, n, batch_size):
+            stop = min(start + batch_size, n)
+            img = images[start:stop].permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
+            out_od, out_oc = predict_fn(img)
+            dev = out_od.device
+            god = torch.as_tensor(np.asarray(od_gt_256[start:stop]), dtype=torch.float32,
+                                  device=dev)
+            goc = torch.as_tensor(np.asarray(oc_gt_256[start:stop]), dtype=torch.float32,
+                                  device=dev)
+            m = device_metrics(out_od[:, 0], out_oc[:, 0], god, goc)
+            per_item = torch.stack([m[k] for k in METRIC_KEYS]).cpu().numpy()  # the one copy
+            for j, k in enumerate(METRIC_KEYS):
+                sums[k] += float(per_item[j].sum())
     out = {k: v / n for k, v in sums.items()}
     out["objective"] = objective_from_means(out, label)
     return out

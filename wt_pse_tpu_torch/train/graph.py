@@ -48,15 +48,26 @@ to the caller. The capture runs with CUDA's sync debug mode set to error, so
 a host sync in the step (``.item()``, ``nonzero``, a Python branch on a
 value) fails the capture rather than being recorded wrongly.
 
+Device spans (``utils/trace.py``): with ``marks=True``, or after
+:meth:`GraphedStep.start_marks`, the body stamps the device clock at each of
+about 17 marks a step (``step.start``, ``sample``, each phase's
+``forward``, ``backward`` and ``optimizer``, ``roi`` and ``metrics``) into
+the column :attr:`GraphedStep.row` points at, so every replayed step keeps
+its stamps with no host sync. They are off by default: a step captured
+without them holds the step's own kernels alone, with no stamp kernel in
+it. The host spans of the capture (``capture``, with ``capture.warmup``
+and ``capture.record``) and of each replay (``replay``, with its global
+step) go to the step's :class:`~wt_pse_tpu_torch.utils.trace.Tracer`.
+
 On the CPU there is no graph; :meth:`GraphedStep.body`, the callable the
-graph records, runs eagerly on the same buffers.
+graph records, runs eagerly on the same buffers, and its marks stamp
+``time.perf_counter_ns()``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
-import time
 import warnings
 from typing import Callable
 
@@ -64,6 +75,7 @@ import torch
 
 from wt_pse_tpu_torch.ops import covariance_cuda as cc
 from wt_pse_tpu_torch.train.state import WTPSETrainState, init_adam_state
+from wt_pse_tpu_torch.utils.trace import DeviceMarks, Tracer
 
 WARMUP_STEPS = 3
 
@@ -79,11 +91,14 @@ class GraphedStep:
     :attr:`batch`. ``eps_keys`` names draws of ``train_step.EPS_KEYS`` that
     come from the static :attr:`eps` buffers (zeros until written) instead
     of the generator. ``capacity`` is the most steps one :meth:`replay` runs.
+    ``tracer`` records the host spans (a tracer of its own by default);
+    ``marks`` turns the device spans on (module docstring).
     """
 
     def __init__(self, state: WTPSETrainState, train_step: Callable, batch: dict, *,
                  capacity: int, batch_fn: Callable | None = None, data: dict | None = None,
-                 generator: torch.Generator | None = None, eps_keys=()):
+                 generator: torch.Generator | None = None, eps_keys=(),
+                 tracer: Tracer | None = None, marks: bool = False):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.state = state
@@ -100,27 +115,55 @@ class GraphedStep:
         self.names: list[str] = []
         self.graph: torch.cuda.CUDAGraph | None = None
         self.launches_per_step: dict = {}
-        self.capture_seconds: float | None = None
         self.pool_bytes: int | None = None  # the device memory the capture reserved
+        self.tracer = tracer if tracer is not None else Tracer()
+        # made here, before any capture: the stamps live outside the graph's pool
+        self.marks = DeviceMarks(self.row, capacity) if marks else None
+
+    @property
+    def capture_seconds(self) -> float | None:
+        """Host seconds of the latest capture, warm-up included (its
+        ``capture`` span); None before the first."""
+        spans = self.tracer.seconds("capture")
+        return spans[-1] if spans else None
+
+    @property
+    def stamp_launches(self) -> int:
+        """Stamp kernels the host launched for this step's marks: 0 without
+        them (``utils/trace.py``)."""
+        return self.marks.launches if self.marks is not None else 0
 
     def body(self, state: WTPSETrainState | None = None,
              generator: torch.Generator | None = None) -> None:
         """One step on the static buffers: sample into :attr:`batch` (with a
         sampler), train ``state`` (the run's by default) on it, and write its
         metrics into the column :attr:`row` points at, then advance
-        :attr:`row`. This is what the graph records."""
+        :attr:`row`. This is what the graph records. With :attr:`marks`, it
+        stamps the device clock at the step's marks; without, it launches
+        nothing more than the step."""
         state = self.state if state is None else state
         gen = self.generator if generator is None else generator
+        marks = self.marks
+        if marks is not None:
+            marks.begin()
+            marks.mark("step.start")
         if self._batch_fn is not None:
             for k, v in self._batch_fn(self._data, gen).items():
                 self.batch[k].copy_(v)
-        metrics = self._train_step(state, self.batch, generator=gen, eps=self.eps)
+        if marks is None:
+            metrics = self._train_step(state, self.batch, generator=gen, eps=self.eps)
+        else:
+            marks.mark("sample")
+            metrics = self._train_step(state, self.batch, generator=gen, eps=self.eps,
+                                       mark=marks.mark)
         if self.metrics is None:
             self.names = sorted(metrics)
             self.metrics = torch.zeros((len(self.names), self.capacity),
                                        dtype=metrics[self.names[0]].dtype, device=self.device)
         values = torch.stack([metrics[k].reshape(()) for k in self.names])
         self.metrics.index_copy_(1, self.row, values[:, None].to(self.metrics.dtype))
+        if marks is not None:
+            marks.mark("metrics")
         self.row.add_(1)
 
     def rewind(self) -> None:
@@ -131,6 +174,24 @@ class GraphedStep:
         """Each metric's (n,) stack of columns 0..n-1, as device tensors (one
         copy, no host sync)."""
         return dict(zip(self.names, self.metrics[:, :n].clone()))
+
+    def read_marks(self, n: int) -> torch.Tensor:
+        """The stamps of columns 0..n-1, ``(n_marks, n)`` int64 on the
+        device (one copy, no host sync); the marks must be on."""
+        return self.marks.buf[:, :n].clone()
+
+    def start_marks(self) -> None:
+        """Turn the device spans on. A step already captured is captured
+        again with its marks, after the old graph is freed. Does nothing
+        when they are on. Under data parallelism every rank must call it,
+        in lockstep, as :meth:`capture`."""
+        if self.marks is not None:
+            return
+        self.marks = DeviceMarks(self.row, self.capacity)
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+            self.capture()
 
     def prepare(self, warmup: int = WARMUP_STEPS,
                 stream: torch.cuda.Stream | None = None) -> None:
@@ -176,11 +237,19 @@ class GraphedStep:
         captures, in lockstep, the same sequence of collectives."""
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device; this step is on {self.device}")
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        self.prepare(warmup, side)
+        with self.tracer.span("capture"):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with self.tracer.span("capture.warmup"):
+                self.prepare(warmup, side)
+            if self.marks is not None:
+                self.marks.freeze()  # the buffer the graph stamps into, fixed from here
+            with self.tracer.span("capture.record"):
+                self._record(side)
 
+    def _record(self, side: torch.cuda.Stream) -> None:
+        """Capture :meth:`body` on ``side`` under the sync debug mode
+        "error"; then wait for the card."""
         step, before = self.state.step, cc.launch_counts()
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
@@ -203,19 +272,21 @@ class GraphedStep:
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
         torch.cuda.synchronize(self.device)
-        self.capture_seconds = time.perf_counter() - t0
 
     def replay(self, n: int) -> dict[str, torch.Tensor]:
         """Replay the captured step ``n`` times, its metrics in columns
         0..n-1; returns them as :meth:`read` does. Adds ``n`` to the state's
-        step count and ``n`` steps' launches to the launch counters."""
+        step count and ``n`` steps' launches to the launch counters. Each
+        ``graph.replay()`` call is a ``replay`` span with its global step (the
+        state's step count)."""
         if self.graph is None:
             raise RuntimeError("replay before capture")
         if not 1 <= n <= self.capacity:
             raise ValueError(f"replay of {n} steps; this graph records 1..{self.capacity}")
         self.rewind()
-        for _ in range(n):
-            self.graph.replay()
+        for i in range(n):
+            with self.tracer.span("replay", step=self.state.step + i):
+                self.graph.replay()
         self.state.step += n
         cc.add_launches(self.launches_per_step, n)
         return self.read(n)

@@ -46,6 +46,13 @@ branch that decides whether a collective runs (``wt_feats is None``, the
 shape phases, ``multi-turn``) depends on the configuration alone, so every
 rank reaches every collective in the same order.
 
+Device spans: ``mark(name)``, where given (``train/graph.py``'s marked
+body), is called as each part of the step is enqueued: after each phase's
+forward and losses (``phase1.od_seg/forward``; the teacher's no-grad forward
+of phases 2 and 4 is a ``forward`` of its own), its backward, its gradient
+mean and Adam (``optimizer``), and after the ROI (``roi``). A phase's train
+Dice and metric detaches follow its ``optimizer`` mark, in the next span.
+
 Metrics stay device tensors (f32; f64 in an f64 step): the step makes no
 ``.item()`` call. Tensors are NCHW; the batch is domain-contiguous (domain d
 holds rows ``[d*per_domain_batch, (d+1)*per_domain_batch)``), which the MMD
@@ -112,9 +119,14 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def _no_mark(name: str) -> None:
+    pass
+
+
 def _seg_phase(ns: NetState, image, target, wt_input, seg_loss_fn, cfg: StepConfig,
-               eps, generator):
-    """One segmentation phase (1 or 3). Returns (detached logits, metrics)."""
+               eps, generator, mark=_no_mark):
+    """One segmentation phase (1 or 3). Returns (detached logits, metrics).
+    ``mark`` is called after its forward, backward and optimizer."""
     net, opt = ns.net, ns.opt
     net.train()
     opt.zero_grad(set_to_none=True)
@@ -126,10 +138,13 @@ def _seg_phase(ns: NetState, image, target, wt_input, seg_loss_fn, cfg: StepConf
     else:
         inst = dom = torch.zeros((), dtype=loss_seg.dtype, device=out.device)
     total = loss_seg + cfg.instance_wt_gm * inst + cfg.domain_wt_gm * dom
+    mark("forward")
     total.backward()
+    mark("backward")
     if cfg.mesh is not None:
         mean_grads_(net.parameters(), cfg.mesh)
     opt.step()
+    mark("optimizer")
     out = out.detach()
     # train Dice (smoothed) at the reference's 0.75 threshold
     pred = (torch.sigmoid(out) > 0.75).to(loss_seg.dtype)
@@ -141,14 +156,17 @@ def _seg_phase(ns: NetState, image, target, wt_input, seg_loss_fn, cfg: StepConf
 
 
 def _shape_phase(main: NetState, stud: NetState, image, mask, cfg: StepConfig,
-                 eps_teacher, eps_student, generator):
-    """One shape-distillation phase (2 or 4), multi-turn times. Returns metrics."""
+                 eps_teacher, eps_student, generator, mark=_no_mark):
+    """One shape-distillation phase (2 or 4), multi-turn times. Returns metrics.
+    ``mark`` is called after each turn's teacher forward, student forward,
+    backward and optimizer."""
     metrics = {}
     for _ in range(cfg.multi_turn):
         main.net.train()
         with torch.no_grad():  # teacher: updates BN stats, gradients discarded
             _z_t, mu_t = main.net.teacher_sample(image, mask, eps=eps_teacher,
                                                  generator=generator)
+        mark("forward")
         stud.net.train()
         stud.opt.zero_grad(set_to_none=True)
         _z_s, mu_s, wt_feats = stud.net.update_forward(image, eps=eps_student,
@@ -158,10 +176,13 @@ def _shape_phase(main: NetState, stud: NetState, image, mask, cfg: StepConfig,
             wt_feats, cfg.domain_num, cfg.per_domain_batch, cfg.margin,
             cfg.replicate_ref_quirks, cfg.mesh)
         total = kd + cfg.instance_wt_gm * inst_total + cfg.domain_wt_gm * dom
+        mark("forward")
         total.backward()
+        mark("backward")
         if cfg.mesh is not None:
             mean_grads_(stud.net.parameters(), cfg.mesh)
         stud.opt.step()
+        mark("optimizer")
         metrics = {"loss_kd": kd, "loss_ins_wt_shape": inst_total,
                    "loss_ins_wt_shape_ij": inst_ij, "loss_ins_wt_shape_ii": inst_ii,
                    "loss_dom_wt_shape": dom}
@@ -186,20 +207,28 @@ def _oc_roi(out_od: torch.Tensor, image: torch.Tensor, target_oc: torch.Tensor,
 def make_train_step(cfg: StepConfig, *, device: str | torch.device = "cuda"):
     """Build the 4-phase iteration on ``device``.
 
-    Returns ``train_step(state, batch, generator=None, eps=None) -> metrics``.
+    Returns ``train_step(state, batch, generator=None, eps=None, mark=None)
+    -> metrics``.
     ``batch`` holds ``image`` (B, 3, H, W) in [-1, 1] and ``target_od`` /
     ``target_oc`` (B, 1, H, W), as tensors or arrays; they are moved to
     ``device``. ``state`` (on ``device``) is updated in place. ``eps`` maps
     names of :data:`EPS_KEYS` to injected draws; the rest come from
-    ``generator`` (a ``torch.Generator`` on ``device``).
+    ``generator`` (a ``torch.Generator`` on ``device``). ``mark``, where
+    given, is called with the name of each part of the step as it is
+    enqueued (module docstring).
     """
     dev = resolve_device(device)
     shape_phases = cfg.distill and cfg.whitening and cfg.shape_prior
 
     def train_step(state: WTPSETrainState, batch: dict[str, Any],
                    generator: torch.Generator | None = None,
-                   eps: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+                   eps: dict[str, torch.Tensor] | None = None,
+                   mark=None) -> dict[str, torch.Tensor]:
         eps = eps or {}
+        mark = mark if mark is not None else _no_mark
+
+        def phase(name):
+            return lambda what: mark(f"{name}/{what}")
         image, target_od, target_oc = (
             _wide(torch.as_tensor(batch[k], device=dev))
             for k in ("image", "target_od", "target_oc"))
@@ -207,28 +236,29 @@ def make_train_step(cfg: StepConfig, *, device: str | torch.device = "cuda"):
         # ---- phase 1: OD segmentation ---------------------------------------
         out_od, m1 = _seg_phase(state.od, image, target_od, image,
                                 lambda out: bce_probs(out, target_od), cfg,
-                                eps.get("phase1"), generator)
+                                eps.get("phase1"), generator, phase("phase1.od_seg"))
 
         # ---- phase 2: OD shape distillation ---------------------------------
         m2 = {}
         if shape_phases:
             m2 = _shape_phase(state.od, state.od_shape, image, target_od, cfg,
                               eps.get("phase2.teacher"), eps.get("phase2.student"),
-                              generator)
+                              generator, phase("phase2.od_shape"))
 
         # ---- phase 3: OC segmentation on the OD ROI -------------------------
         od_pred, image_roi, pos_w = _oc_roi(out_od, image, target_oc, cfg.mesh)
+        mark("roi")
         _, m3 = _seg_phase(
             state.oc, image_roi, target_oc, image_roi,
             lambda out: bce_logits_pos_weight(out * od_pred, target_oc, pos_w),
-            cfg, eps.get("phase3"), generator)
+            cfg, eps.get("phase3"), generator, phase("phase3.oc_seg"))
 
         # ---- phase 4: OC shape distillation ---------------------------------
         m4 = {}
         if shape_phases:
             m4 = _shape_phase(state.oc, state.oc_shape, image_roi, target_oc, cfg,
                               eps.get("phase4.teacher"), eps.get("phase4.student"),
-                              generator)
+                              generator, phase("phase4.oc_shape"))
 
         metrics = dict(m1)
         metrics.update(m2)

@@ -81,7 +81,7 @@ from wt_pse_tpu_torch.data.augment import make_device_batch_fn
 from wt_pse_tpu_torch.data.fundus import FundusDomain, encode_masks
 from wt_pse_tpu_torch.io.checkpoint import restore_ensemble, save_ensemble
 from wt_pse_tpu_torch.models.common import ModelConfig
-from wt_pse_tpu_torch.parallel.collectives import barrier, broadcast_floats
+from wt_pse_tpu_torch.parallel.collectives import barrier, broadcast_floats, gather_objects
 from wt_pse_tpu_torch.parallel.distributed import rank_and_world
 from wt_pse_tpu_torch.parallel.dp import choose_ranks, make_dp_fused, rank_seed
 from wt_pse_tpu_torch.parallel.mesh import data_mesh
@@ -95,6 +95,7 @@ from wt_pse_tpu_torch.train.lr import epoch_lrs, reference_lr_kwargs, reference_
 from wt_pse_tpu_torch.train.state import WTPSETrainState, copy_state_, init_ensemble, set_lr_
 from wt_pse_tpu_torch.train.step import StepConfig, make_train_step
 from wt_pse_tpu_torch.utils.logging import RunLogger
+from wt_pse_tpu_torch.utils.trace import StampedSteps, Tracer, write_chrome
 
 _LR_KEYS = {"warmup_steps", "warmup_factor", "gamma", "milestones", "clamp_warmup"}
 
@@ -184,8 +185,7 @@ class Trainer:
         image_size: int = 256,
         resume: str | None = None,
         algorithm: str = "WT_PSE",
-        profile_dir: str | None = None,
-        profile_steps: int = 20,
+        trace_dir: str | None = None,
         nan_recovery: bool = False,
         fast_validation: bool = False,
         tensorboard: bool = False,
@@ -218,7 +218,15 @@ class Trainer:
         parallelism over gloo (its collectives cannot be captured); under
         NCCL every rank captures the data-parallel step at construction, in
         lockstep, and a capture that fails raises: nothing falls back to the
-        loop."""
+        loop.
+
+        Tracing (``utils/trace.py``): the host spans of set-up, epochs,
+        replays, validations and checkpoints go to :attr:`tracer`, always.
+        ``trace_dir`` turns the graph's device spans on from construction
+        (:meth:`start_device_spans`) and makes :meth:`train` end by writing
+        ``spans.json`` there."""
+        self.tracer = Tracer()
+        init = self.tracer.begin("trainer.init")
         self.device = resolve_device(device)
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}; have {ALGORITHMS}")
@@ -290,11 +298,13 @@ class Trainer:
 
         self.algorithm = algorithm
         self.cfg = ModelConfig.from_hparams(self.hparams, bn_mesh=self.mesh)  # sync BN under DP
-        self.state: WTPSETrainState = init_ensemble(
-            self.cfg, device=self.device, generator=torch.Generator().manual_seed(seed),
-            lr_od=lr_od, lr_od_shape=lr_od_shape, lr_oc=lr_oc, lr_oc_shape=lr_oc_shape,
-            algorithm=algorithm, capturable=self.scan_epochs)
-        self.data = stack_domains(train_domains, self.device)
+        with self.tracer.span("init_ensemble"):
+            self.state: WTPSETrainState = init_ensemble(
+                self.cfg, device=self.device, generator=torch.Generator().manual_seed(seed),
+                lr_od=lr_od, lr_od_shape=lr_od_shape, lr_oc=lr_oc, lr_oc_shape=lr_oc_shape,
+                algorithm=algorithm, capturable=self.scan_epochs)
+        with self.tracer.span("stack_domains"):
+            self.data = stack_domains(train_domains, self.device)
         if self.dp:
             fused = make_dp_fused([ns.net for ns in self.state.net_states()], self.hparams,
                                   self.mesh, self.domain_num, self.per_domain_batch,
@@ -337,12 +347,6 @@ class Trainer:
                 np.uint8)) for lab in val_domain.labels]
             self._val_od_256 = np.stack([od for od, _ in masks])
             self._val_oc_256 = np.stack([oc for _, oc in masks])
-        # host-clock seconds of each epoch's steps (to the end of the epoch's
-        # one device-to-host copy), of the host's enqueueing of those steps (to
-        # the return of the last step call), and of each validation, split
-        self.epoch_seconds: list[float] = []
-        self.enqueue_seconds: list[float] = []
-        self.validation_seconds: list[dict[str, float]] = []
         # what scored the last validation: 'native' or 'scipy' on the host, or
         # 'device' (fast_validation)
         self.scoring_backend: str | None = None
@@ -351,8 +355,7 @@ class Trainer:
         self.best = {"objective": 0.0, "epoch": -1}
         self.best_list = [0.0] * 6
         self.epoch = 0
-        self.profile_dir = profile_dir
-        self.profile_steps = profile_steps
+        self.trace_dir = trace_dir
         self.nan_recovery = nan_recovery
         self._last_good: WTPSETrainState | None = None
 
@@ -381,7 +384,8 @@ class Trainer:
             probe = self._batch_fn(self.data, torch.Generator(device=self.device).manual_seed(0))
             self._graph = GraphedStep(self.state, self._train_step, probe,
                                       capacity=self.iter_per_epoch, batch_fn=self._batch_fn,
-                                      data=self.data, generator=self._gen)
+                                      data=self.data, generator=self._gen, tracer=self.tracer,
+                                      marks=trace_dir is not None)
             self._graph.capture()
             print(f"[trainer] captured the step as a CUDA graph in "
                   f"{self._graph.capture_seconds:.2f} s; its memory pool "
@@ -407,6 +411,38 @@ class Trainer:
             "torch_version": torch.__version__,
             "cuda_version": torch.version.cuda,
         }, name=meta_name)
+        self.tracer.end(init)
+
+    @property
+    def epoch_seconds(self) -> list[float]:
+        """Host-clock seconds of each epoch's steps, to the end of the
+        epoch's one device-to-host copy (its ``epoch`` span)."""
+        return self.tracer.seconds("epoch")
+
+    @property
+    def enqueue_seconds(self) -> list[float]:
+        """Host-clock seconds the host took to enqueue each epoch's steps, to
+        the return of the last step call (its ``epoch.steps`` span)."""
+        return self.tracer.seconds("epoch.steps")
+
+    @property
+    def validation_seconds(self) -> list[dict[str, float]]:
+        """Each validation's seconds, split as its ``validate`` span's
+        children: ``predict``, ``upsample`` and ``score`` on the host path,
+        ``device`` on the fast one."""
+        return [self.tracer.child_seconds(s) for s in self.tracer.closed("validate")]
+
+    def start_device_spans(self) -> None:
+        """Turn the graph's device spans on: the step is captured again with
+        its marks, after the old graph is freed, and each later epoch keeps
+        every step's stamps (:attr:`tracer`'s ``stamped``). Does nothing
+        when they are on. Under data parallelism every rank must call it, in
+        lockstep. Only the graph driver has device spans; the eager loop's
+        ``sample`` is a host span."""
+        if self._graph is None:
+            raise RuntimeError("device spans need the graph driver (scan_epochs); the "
+                               "eager loop records host spans only")
+        self._graph.start_marks()
 
     def _save_val_montage(self, predict):
         """The reference's validation montage (utils.py:330-363,
@@ -460,66 +496,44 @@ class Trainer:
     def validate(self) -> dict:
         """Score the current nets on the validation domain, at native
         resolution on the host or, with ``fast_validation``, on the device.
-        The seconds spent (``predict`` / ``upsample`` / ``score`` on the host
-        path, ``device`` on the fast one) are appended to
-        ``validation_seconds``; the engine that scored is
+        Its ``validate`` span holds the spans of the work (``predict`` /
+        ``upsample`` / ``score`` on the host path, ``device`` on the fast
+        one), read by ``validation_seconds``; the engine that scored is
         ``scoring_backend``. Under data parallelism every rank validates
         (batch-sharded when N divides ``eval_batch_size``) and every rank
         returns rank 0's numbers."""
-        predict = make_predict_fn_for(self.algorithm,
-                                      [ns.net for ns in self.state.net_states()],
-                                      device=self.device)
-        if self._shard_eval:
-            predict = batch_sharded(predict, self.mesh)
-        if self.val_visualization:
-            self._save_val_montage(predict)
-        timings: dict[str, float] = {}
-        if self.fast_validation:
-            self.scoring_backend = "device"
-            out = evaluate_domain_device(predict, self.val_images, self._val_od_256,
-                                         self._val_oc_256, self.label,
-                                         self.eval_batch_size, timings=timings)
-        else:
-            self.scoring_backend = native.scoring_backend("auto")
-            out = evaluate_domain(predict, self.val_images, self.val_od, self.val_oc,
-                                  self.label, self.eval_batch_size, timings=timings,
-                                  backend=self.scoring_backend)
-        self.validation_seconds.append(timings)
-        if self.dp:
-            # host scoring could differ between ranks; a rank that took the
-            # other best-model branch would skip the checkpoint's barrier
-            keys = sorted(out)
-            out = dict(zip(keys, broadcast_floats([float(out[k]) for k in keys], self.mesh)))
+        with self.tracer.span("validate", epoch=self.epoch):
+            predict = make_predict_fn_for(self.algorithm,
+                                          [ns.net for ns in self.state.net_states()],
+                                          device=self.device)
+            if self._shard_eval:
+                predict = batch_sharded(predict, self.mesh)
+            if self.val_visualization:
+                self._save_val_montage(predict)
+            if self.fast_validation:
+                self.scoring_backend = "device"
+                out = evaluate_domain_device(predict, self.val_images, self._val_od_256,
+                                             self._val_oc_256, self.label,
+                                             self.eval_batch_size, tracer=self.tracer)
+            else:
+                self.scoring_backend = native.scoring_backend("auto")
+                out = evaluate_domain(predict, self.val_images, self.val_od, self.val_oc,
+                                      self.label, self.eval_batch_size, tracer=self.tracer,
+                                      backend=self.scoring_backend)
+            if self.dp:
+                # host scoring could differ between ranks; a rank that took the
+                # other best-model branch would skip the checkpoint's barrier
+                keys = sorted(out)
+                out = dict(zip(keys, broadcast_floats([float(out[k]) for k in keys],
+                                                      self.mesh)))
         return out
-
-    def _profile_once(self):
-        """A ``torch.profiler`` trace of ``profile_steps`` steps into
-        ``profile_dir``, taken on a copy of the state with a generator of its
-        own, so the run's trajectory does not change."""
-        from torch.profiler import ProfilerActivity, profile
-
-        state = copy.deepcopy(self.state)
-        gen = torch.Generator(device=self.device).manual_seed(
-            rank_seed(_draw_seed(self.seed, -1), self.mesh))
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            for _ in range(self.profile_steps):
-                self._train_step(state, self._batch_fn(self.data, gen), generator=gen)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        if not self.is_main_process:
-            return
-        os.makedirs(self.profile_dir, exist_ok=True)
-        path = os.path.join(self.profile_dir, "trace.json")
-        prof.export_chrome_trace(path)
-        print(f"profiler trace ({self.profile_steps} steps) -> {path}")
 
     def fused_step(self) -> dict[str, torch.Tensor]:
         """One eager sample + step on the run's state and generator (the JAX
-        Trainer's ``fused_step``); returns the step's metrics."""
-        self._last_batch = self._batch_fn(self.data, self._gen)
+        Trainer's ``fused_step``); returns the step's metrics. Its batch's
+        making is a ``sample`` span with the global step."""
+        with self.tracer.span("sample", step=self.state.step):
+            self._last_batch = self._batch_fn(self.data, self._gen)
         return self._train_step(self.state, self._last_batch, generator=self._gen)
 
     def epoch_step(self, first_step: int, n_steps: int) -> dict[str, torch.Tensor]:
@@ -547,31 +561,52 @@ class Trainer:
         return [b - a for a, b in zip([0] + ends[:-1], ends)]
 
     def _train_epoch(self, epoch: int) -> dict[str, float]:
-        """One epoch of steps; returns the epoch means of the step metrics."""
-        if self._lr_kwargs is not None:
-            lrs = epoch_lrs(epoch, self.lr_od, self.lr_od_shape, self.lr_oc,
-                            self.lr_oc_shape, **self._lr_kwargs)
-            for ns, lr in zip(self.state.net_states(), lrs):
-                set_lr_(ns.opt, lr)
-        self._gen.manual_seed(rank_seed(_draw_seed(self.seed, epoch, self._rollbacks),
-                                        self.mesh))
-        base = epoch * self.iter_per_epoch
-        stacks, done = [], 0
-        t0 = time.perf_counter()
-        for n in self._chunks(base):
-            stacks.append(self.epoch_step(base + done, n))
-            done += n
-            g = base + done - 1
-            if (self.train_visualization and self.is_main_process
-                    and g % self.train_viz_interval == 0):
-                self._save_train_montage(self.last_batch, g)
-        self.enqueue_seconds.append(time.perf_counter() - t0)
-        names = sorted(stacks[0])
-        # the one device-to-host copy of the epoch
-        per_step = torch.stack([torch.cat([s[k] for s in stacks])
-                                for k in names]).cpu().numpy()
-        if self.per_step_logging:
+        """One epoch of steps; returns the epoch means of the step metrics.
+        Its ``epoch`` span holds ``epoch.set_lr`` (with a schedule),
+        ``epoch.reseed``, ``epoch.steps`` (the steps' enqueueing: the graph's
+        ``replay`` spans, the loop's ``sample`` spans) and ``epoch.copy``,
+        the epoch's one device-to-host copy, where the host waits for the
+        card. With device spans, the step's stamps come back in that copy and
+        the device clock is read against the host's at the epoch's start and
+        end (:class:`~wt_pse_tpu_torch.utils.trace.StampedSteps`)."""
+        trace = self.tracer
+        marks = self._graph.marks if self._graph is not None else None
+        with trace.span("epoch", epoch=epoch):
+            if self._lr_kwargs is not None:
+                with trace.span("epoch.set_lr", epoch=epoch):
+                    lrs = epoch_lrs(epoch, self.lr_od, self.lr_od_shape, self.lr_oc,
+                                    self.lr_oc_shape, **self._lr_kwargs)
+                    for ns, lr in zip(self.state.net_states(), lrs):
+                        set_lr_(ns.opt, lr)
+            with trace.span("epoch.reseed", epoch=epoch):
+                self._gen.manual_seed(rank_seed(_draw_seed(self.seed, epoch, self._rollbacks),
+                                                self.mesh))
+            clock = [marks.clock_bracket()] if marks is not None else []
             base = epoch * self.iter_per_epoch
+            stacks, stamps, done = [], [], 0
+            with trace.span("epoch.steps", epoch=epoch):
+                for n in self._chunks(base):
+                    stacks.append(self.epoch_step(base + done, n))
+                    if marks is not None:
+                        stamps.append(self._graph.read_marks(n))
+                    done += n
+                    g = base + done - 1
+                    if (self.train_visualization and self.is_main_process
+                            and g % self.train_viz_interval == 0):
+                        self._save_train_montage(self.last_batch, g)
+            names = sorted(stacks[0])
+            with trace.span("epoch.copy", epoch=epoch):
+                # the one device-to-host copy of the epoch
+                per_step = torch.stack([torch.cat([s[k] for s in stacks]) for k in names])
+                if marks is None:
+                    per_step = per_step.cpu().numpy()
+                else:
+                    per_step, stamps = _one_copy(per_step, torch.cat(stamps, dim=1))
+            if marks is not None:
+                clock.append(marks.clock_bracket())
+                trace.stamped.append(StampedSteps(epoch, base, list(marks.names), stamps,
+                                                  clock))
+        if self.per_step_logging:
             self.logger.step_scalars_many(
                 (base + it, {k: per_step[j, it] for j, k in enumerate(names)})
                 for it in range(per_step.shape[1]))
@@ -581,23 +616,42 @@ class Trainer:
         """``checkpoint_{epoch+1}.pth.tar`` and, for a new best, ``best.json``,
         written by rank 0; under data parallelism every rank then waits at a
         barrier, so none runs ahead of a checkpoint being written."""
-        if self.is_main_process:
-            save_ensemble(os.path.join(self.out, f"checkpoint_{epoch + 1}.pth.tar"), self.state)
-            if best:
-                with open(os.path.join(self.out, "best.json"), "w") as f:
-                    json.dump({"objective": self.best["objective"], "epoch": self.best["epoch"],
-                               "best_list": self.best_list}, f)
-        if self.dp:
-            barrier(self.mesh)
+        with self.tracer.span("checkpoint", epoch=epoch):
+            if self.is_main_process:
+                save_ensemble(os.path.join(self.out, f"checkpoint_{epoch + 1}.pth.tar"),
+                              self.state)
+                if best:
+                    with open(os.path.join(self.out, "best.json"), "w") as f:
+                        json.dump({"objective": self.best["objective"],
+                                   "epoch": self.best["epoch"], "best_list": self.best_list}, f)
+            if self.dp:
+                barrier(self.mesh)
 
     def train(self) -> list[float]:
-        if self.profile_dir:
-            self._profile_once()
+        """Train from :attr:`epoch` to ``max_epoch`` (or ``stop_epoch``);
+        returns the best scores. With ``trace_dir``, ends by writing
+        ``spans.json`` there (:meth:`write_spans`)."""
+        best = self._train()
+        if self.trace_dir is not None:
+            self.write_spans(os.path.join(self.trace_dir, "spans.json"))
+        return best
+
+    def write_spans(self, path: str) -> None:
+        """Every span of the run as a Chrome trace (``utils/trace.py``): a
+        host and a device track per rank, on the host clock. Under data
+        parallelism every rank must call it; rank 0 writes the file."""
+        payload = (self.tracer.chrome_events(self.rank), self.tracer.clock_record())
+        parts = gather_objects(payload, self.mesh) if self.dp else [payload]
+        if self.is_main_process:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            write_chrome(path, [e for events, _ in parts for e in events],
+                         [dict(c, rank=r) for r, (_, clocks) in enumerate(parts) for c in clocks])
+
+    def _train(self) -> list[float]:
         for epoch in range(self.epoch, self.max_epoch):
             self.epoch = epoch
             t0 = time.perf_counter()
             metrics = self._train_epoch(epoch)
-            self.epoch_seconds.append(time.perf_counter() - t0)
             if self._lr_kwargs is not None:
                 # the reference's per-epoch 'lr'/'lr_shape' scalars read the
                 # optimizers after lr_update(epoch): f(epoch), the lr of the
@@ -668,3 +722,14 @@ class Trainer:
             else:
                 _csv()
         return list(self.best_list)
+
+
+def _one_copy(per_step: torch.Tensor, stamps: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """The metric stacks and the stamps on the host in one device-to-host
+    copy: both as bytes, the int64 stamps first, so each part's offset suits
+    its type."""
+    blob = torch.cat([stamps.reshape(-1).view(torch.uint8),
+                      per_step.reshape(-1).view(torch.uint8)]).cpu()
+    k = stamps.numel() * stamps.element_size()
+    return (blob[k:].view(per_step.dtype).reshape(per_step.shape).numpy(),
+            blob[:k].view(torch.int64).reshape(stamps.shape).numpy())
