@@ -5,7 +5,8 @@
 
 Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
 
-1. build the hand-written kernels from ``wt_pse_tpu_torch/csrc`` (nvcc, sm_90a)
+1. build the hand-written kernels from ``wt_pse_tpu_torch/csrc`` (nvcc, sm_90a:
+   the covariance and the BatchNorm libraries)
    and, at the same time, the native eval operators (``csrc/evalops.cpp``,
    g++), and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, forward and
@@ -22,7 +23,8 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    (the port's plain path, which the CPU tests hold against the JAX package);
 4. the main path: full-width training steps (256x256, batch 9 = 3 domains x 3,
    base width 16, f32, TF32 off) from seeded weights on a synthetic batch, with
-   the launch counts set to 0 just before and read just after; two more steady
+   the launch counts set to 0 just before and read just after (8 of each
+   covariance kernel and 148 BatchNorm backwards a step); two more steady
    steps traced with ``torch.profiler`` (device time by kernel, the card's busy
    share of the step: the breakdown in PERF.md; the hand-written kernels'
    device time a call); both kernels held against their plain versions on the
@@ -41,7 +43,7 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    graph (the sample + step captured once as a CUDA graph and replayed once a
    step; its capture time and memory pool), trains 5 epochs of 4 steps, with
    the launch counts set to 0 just before and read just after (8 of each
-   kernel a replayed step),
+   covariance kernel and 148 BatchNorm backwards a replayed step),
    and validates after epochs 3 and 4 on 8 images whose labels are at two
    native resolutions (512x512 and 640x640). It checks finite losses, the
    log rows, the 7 finite validation metrics, best.json and a checkpoint; a
@@ -80,8 +82,9 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    finite logits, a steady call timed;
 8. the bf16 main path (``compute_dtype='bfloat16'``): 8 full-width bf16
    steps from seeded weights on one fixed batch, with the launch counts set
-   to 0 just before and read just after (8 of each bf16 kernel a step, no f32
-   launch), finite losses and a loss that falls over the 8 steps, f32
+   to 0 just before and read just after (8 of each bf16 covariance kernel and
+   148 bf16 BatchNorm backwards a step, no f32 launch; the Trainer's run
+   below likewise), finite losses and a loss that falls over the 8 steps, f32
    parameters and BatchNorm statistics after them, the steady bf16 step time
    beside phase 4's f32 step of the same call, a ``torch.profiler`` breakdown
    of two more steps by layer (convolutions, BatchNorm, casts, the card's busy
@@ -199,11 +202,34 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    against one card and phase 11 (a)'s gloo ranks. On one card (b) prints
    that it did not run.
 
+15. the BatchNorm + ReLU backward kernels (``ops/batchnorm_cuda.py``) at
+   every training-mode BatchNorm's shape of the default step (N = 9; 9
+   (C, H, W)), in f32 and bf16, with and without the ReLU, through
+   ``BatchNormReLU`` (the library's forward: cuDNN in f32, ATen in bf16;
+   then the kernels), held by ``check_batchnorm``: dx, dweight and dbias
+   within their tolerance (dx at f32_reduce, or 1 bf16 ulp + f32_reduce;
+   dweight and dbias at f32_reduce of the sum of their terms' magnitudes) of
+   an f64 truth with the kernels' ReLU mask and of their plain version;
+   against the library's backward through the same forward + ``F.relu``
+   (autograd) within that tolerance plus the library's own distance from
+   its f64 truth; the recomputed mask's flips against the forward's counted,
+   at most 1e-5 of the elements and each within 8 f32 ulps of 0; then, at
+   (9, 16, 256, 256), (9, 32, 128, 128) and (9, 256, 16, 16) with the ReLU,
+   the kernel pair timed by CUDA events after a 256 MB write (dirty L2, as
+   phase 5) and about 1 ms of sleep on the card (so that the host's enqueue is
+   not timed), in turns with the plain version and the library's backward
+   (autograd through the same forward), a yardstick the port never calls;
+   beside each, the two-pass bound (x and dy read twice, dx written) and the
+   strict one (each byte once) at 3.35 TB/s.
+
 ``python3 chip_smoke.py --phases N ...`` runs only those phases (and the
 ones they read); with no arguments it runs them all.
 
-The card's name and power limit follow the build line. The line before the
-last is a JSON ``kernels`` record of four rows, the f32 and the bf16 variant
+The card's name and power limit follow the build line. With phase 15 a JSON
+``batchnorm_kernels`` record of its timed rows comes before the ``kernels``
+line (``launches``: the BatchNorm backwards of the row's type counted in the
+trainer runs of phases 6 and 8, ``steps`` their steps).
+The line before the last is a JSON ``kernels`` record of four rows, the f32 and the bf16 variant
 of each kernel (``launches`` counted in the trainer runs of phases 6 and 8);
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or the
 JAX package.
@@ -376,10 +402,28 @@ def check_kernels(cc, dev) -> dict:
     return errs
 
 
+BN_LAUNCHES_A_STEP = 148  # training-mode BatchNorm backwards in a default WT_PSE step
+
+
 def zero_counts(cc) -> None:
     """Sets every kernel's launch count to 0."""
-    for fn in (cc.covariance_forward, cc.covariance_backward):
+    from wt_pse_tpu_torch.ops.batchnorm_cuda import batch_norm_backward
+
+    for fn in (cc.covariance_forward, cc.covariance_backward, batch_norm_backward):
         fn.launches = fn.launches_bf16 = 0
+
+
+def read_bn_counts() -> dict:
+    """The BatchNorm backward's launch counts by row name."""
+    from wt_pse_tpu_torch.ops.batchnorm_cuda import batch_norm_backward as fn
+
+    return {"bn_backward": fn.launches, "bn_backward_bf16": fn.launches_bf16}
+
+
+def expect_bn_counts(got: dict, f32: int, bf16: int, what: str) -> None:
+    want = {"bn_backward": f32, "bn_backward_bf16": bf16}
+    if got != want:
+        raise SystemExit(f"{what}: expected BatchNorm backward launches {want}, got {got}")
 
 
 def read_counts(cc) -> dict:
@@ -542,7 +586,8 @@ def profile_eager_steps(step, state, batch, gen, step_ms: float, n: int = 2) -> 
     # the hand-written kernels as the step calls them, the L2 left as the
     # step's other kernels leave it
     own = {re.sub(r"^void |\(anonymous namespace\)::|[(<].*$", "", k): (v, calls[k])
-           for k, v in by_name.items() if re.search(r"gram_\w+_kernel|dz_(\w+_)?kernel", k)}
+           for k, v in by_name.items()
+           if re.search(r"gram_\w+_kernel|dz_(\w+_)?kernel|bn_bw_\w+_kernel", k)}
     own_us = sum(v for v, _ in own.values())
     log(f"the hand-written kernels: {own_us / n / 1e3:.3f} ms/step, "
         f"{own_us / total:.2%} of device time; " +
@@ -579,15 +624,17 @@ def main_path(cc, dev) -> float:
         bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
         if bad:
             raise SystemExit(f"non-finite metrics at step {state.step}: {bad}")
-    launches = read_counts(cc)
+    launches, bn_launches = read_counts(cc), read_bn_counts()
     steady_ms = statistics.median(times[1:]) * 1e3
     log(f"train steps ({STEPS}, 256x256, batch 9 = 3x3, f32): " +
         ", ".join(f"{t * 1e3:.2f} ms" for t in times) +
         f"; steady median {steady_ms:.2f} ms/step")
     log("last step metrics: " + json.dumps({k: float(v) for k, v in sorted(metrics.items())}))
-    log(f"covariance launches over the {STEPS} steps: {launches}; peak device memory "
+    log(f"covariance launches over the {STEPS} steps: {launches}; BatchNorm backward "
+        f"launches {bn_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     expect_counts(launches, 8 * STEPS, 0, "phase 4")
+    expect_bn_counts(bn_launches, BN_LAUNCHES_A_STEP * STEPS, 0, "phase 4")
     profile_eager_steps(step, state, batch, gen, steady_ms)
 
     # the maps in train mode, as the step makes them; the BatchNorm running
@@ -689,7 +736,7 @@ def trainer_path(cc, dev, tmp: str) -> dict:
     t0 = time.perf_counter()
     trainer.train()
     wall = time.perf_counter() - t0
-    launches = read_counts(cc)
+    launches, bn_launches = read_counts(cc), read_bn_counts()
     steps = EPOCHS * trainer.iter_per_epoch
     et = trainer.epoch_seconds
     steady = statistics.median(et[1:])
@@ -701,9 +748,11 @@ def trainer_path(cc, dev, tmp: str) -> dict:
         f"{steady:.3f} s = {trainer.iter_per_epoch / steady:.3f} steps/s; the host "
         f"enqueued the steps in " + ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) +
         f" s of them; covariance "
-        f"launches {launches}; peak device memory "
+        f"launches {launches}; BatchNorm backward launches {bn_launches} "
+        f"({trainer._graph.launches_per_step} a replayed step); peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     expect_counts(launches, 8 * steps, 0, "phase 6")
+    expect_bn_counts(bn_launches, BN_LAUNCHES_A_STEP * steps, 0, "phase 6")
     for i, v in enumerate(trainer.validation_seconds):
         log(f"validation {i} (8 images, native 512x512 x5 and 640x640 x3): "
             f"{sum(v.values()):.3f} s = predict on the card {v['predict']:.3f} s + "
@@ -821,7 +870,8 @@ def trainer_path(cc, dev, tmp: str) -> dict:
                   key=lambda e: -e.self_cpu_time_total)
     log("host time of the traced epoch by op (self, top 12): " + "; ".join(
         f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}" for e in host[:12]))
-    return {"launches": launches, "trainer": trainer, "checkpoint": ckpts[-1],
+    return {"launches": {**launches, **bn_launches}, "steps": steps, "trainer": trainer,
+            "checkpoint": ckpts[-1],
             "train": train, "val": val, "epoch_loss_seg": [r["loss_seg"] for r in epochs]}
 
 
@@ -1104,7 +1154,7 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
     f32 step of this call, a profile of two more, the dtypes after the steps
     and a falling loss; a bf16 Trainer for 3 epochs and one validation; a
     small bf16 step and predict against the CPU; the peak device memory.
-    Returns the launch counts of the Trainer's run."""
+    Returns the launch counts of the Trainer's run and its steps."""
     from wt_pse_tpu_torch.config import default_hparams
     from wt_pse_tpu_torch.models.common import ModelConfig
     from wt_pse_tpu_torch.train.state import init_ensemble
@@ -1132,7 +1182,7 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
         bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
         if bad:
             raise SystemExit(f"phase 8: non-finite metrics at step {state.step}: {bad}")
-    launches = read_counts(cc)
+    launches, bn_launches = read_counts(cc), read_bn_counts()
     bf16_ms = statistics.median(times[1:]) * 1e3
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     log(f"phase 8 bf16 train steps ({STEPS_BF16}, 256x256, batch 9 = 3x3, one fixed batch): " +
@@ -1140,8 +1190,9 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
         f"ms/step against the f32 step's {f32_step_ms:.2f} ms (phase 4, this call): "
         f"{bf16_ms / f32_step_ms:.3f}x; peak device memory {peak:.2f} GiB (f32: phase 4)")
     log(f"phase 8 loss_seg over the {STEPS_BF16} steps: " + ", ".join(f"{v:.5f}" for v in losses))
-    log(f"phase 8 covariance launches: {launches}")
+    log(f"phase 8 covariance launches: {launches}; BatchNorm backward launches {bn_launches}")
     expect_counts(launches, 0, 8 * STEPS_BF16, "phase 8 steps")
+    expect_bn_counts(bn_launches, 0, BN_LAUNCHES_A_STEP * STEPS_BF16, "phase 8 steps")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"phase 8: the bf16 loss did not fall over {STEPS_BF16} steps: {losses}")
     dtypes = {str(t.dtype) for ns in state.net_states() for n, t in
@@ -1171,9 +1222,10 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
     torch.cuda.synchronize()
     zero_counts(cc)
     trainer.train()
-    t_launches = read_counts(cc)
+    t_launches, t_bn = read_counts(cc), read_bn_counts()
     steps = 3 * trainer.iter_per_epoch
     expect_counts(t_launches, 0, 8 * steps, "phase 8 trainer")
+    expect_bn_counts(t_bn, 0, BN_LAUNCHES_A_STEP * steps, "phase 8 trainer")
     val, t_val = timed(trainer.validate)
     with open(os.path.join(run, "run_meta.json")) as f:
         meta = json.load(f)
@@ -1186,7 +1238,9 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
         ", ".join(f"{t:.3f}" for t in et) + f" s (steady median {statistics.median(et[1:]):.3f}"
         f" s; phase 6's f32 epochs in this call: " +
         ", ".join(f"{t:.3f}" for t in p6["trainer"].epoch_seconds) + " s); host enqueue " +
-        ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) + f" s; launches {t_launches}; "
+        ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) + f" s; launches {t_launches}, "
+        f"BatchNorm backward {t_bn} ({getattr(trainer._graph, 'launches_per_step', None)} a "
+        f"replayed step); "
         f"validation {t_val:.3f} s: {json.dumps(val)}; run_meta compute_dtype "
         f"{meta['compute_dtype']!r}")
     if len(val) != 7 or not all(map(math.isfinite, val.values())) or \
@@ -1195,7 +1249,7 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
     small_card_vs_cpu(dev, dict(hp), "WT_PSE", "phase 8 bf16 step and predict")
     log(f"phase 8 peak device memory (steps, trainer, small check): "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
-    return t_launches
+    return {"launches": {**t_launches, **t_bn}, "steps": steps}
 
 
 def joint_path(cc, dev, tmp: str, p6: dict) -> None:
@@ -2714,18 +2768,197 @@ def time_kernels(cc, dev, errs: dict) -> list[dict]:
     return rows
 
 
+# (C, H, W) of every training-mode BatchNorm of the default step (N = 9)
+BN_SHAPES = [(16, 256, 256), (32, 256, 256), (32, 128, 128), (64, 128, 128), (64, 64, 64),
+             (128, 64, 64), (128, 32, 32), (256, 32, 32), (256, 16, 16)]
+BN_TIMED_SHAPES = [(9, 16, 256, 256), (9, 32, 128, 128), (9, 256, 16, 16)]
+
+
+def bn_forward(bn, x, w, b, relu: bool, grad: bool = False):
+    """The path's forward (``forward_library``'s dispatch and ReLU), under
+    autograd with ``grad`` (then x, w and b are leaves of their own): (y,
+    mean, invstd, the leaves)."""
+    c = x.shape[1]
+    leaves = tuple(t.detach().requires_grad_(grad) for t in (x, w, b))
+    with torch.set_grad_enabled(grad):
+        y, mean, invstd, _, _ = torch._batch_norm_impl_index(
+            *leaves, torch.zeros(c, device=x.device), torch.ones(c, device=x.device), True,
+            0.1, 1e-5, torch.backends.cudnn.enabled)
+        y = torch.relu(y) if relu else y
+    return y, mean.detach(), invstd.detach(), leaves
+
+
+def bn_errors(got, want, magnitude) -> list[float]:
+    """dx, dweight and dbias of ``got`` against ``want``, each as a share of
+    its tolerance: dx at f32_reduce of its largest magnitude, or 1 bf16 ulp +
+    f32_reduce; dweight and dbias at f32_reduce of the sum of their terms'
+    magnitudes."""
+    if got[0].dtype == torch.bfloat16:
+        dx = bf16_ulp_error(got[0], want[0])
+    else:
+        dx = float((got[0].double() - want[0].double()).abs().max()
+                   / want[0].double().abs().max()) / F32_REDUCE_RTOL
+    return [dx] + [float(((got[i].double() - want[i].double()).abs()
+                          / m.clamp_min(1e-30)).max()) / F32_REDUCE_RTOL
+                   for i, m in ((1, magnitude[0]), (2, magnitude[1]))]
+
+
+BN_MAX_FLIP_SHARE = 1e-5  # elements whose ReLU side the kernels may take otherwise
+BN_FLIP_ULPS = 8.0        # ... only within this many f32 ulps of the pre-activation's terms
+
+
+def check_batchnorm(bn, x, dy, w, b, relu: bool) -> dict:
+    """The path (``BatchNormReLU``: the library's forward, then the kernels)
+    against the library's forward and backward under autograd, from one x.
+    With the ReLU the kernels recompute its mask (``relu_mask``); ``flips``
+    counts the elements where it is not the forward's (y > 0), and
+    ``flip_ulps`` is the largest pre-activation among them in f32 ulps of
+    its terms: a flip is allowed only where the forward's rounding decides
+    the sign. Shares of the tolerance (``bn_errors``) of dx, dweight and
+    dbias: the kernels against an f64 truth with their own mask and against
+    their plain version (each at most 1); against the library, dx where the
+    masks agree, at most 1 plus the library's own distance from an f64 truth
+    with its mask plus the two truths' distance (the flips' effect on the
+    sums). ``ok`` holds all of it."""
+    c = x.shape[1]
+    y, mean, invstd, leaves = bn_forward(bn, x, w, b, relu, grad=True)
+    lib = torch.autograd.grad(y, leaves, dy)
+    xk, wk, bk = (t.detach().requires_grad_() for t in (x, w, b))
+    yk = bn.BatchNormReLU.apply(xk, wk, bk, torch.zeros(c, device=x.device),
+                                torch.ones(c, device=x.device),
+                                torch.zeros((), dtype=torch.long, device=x.device), 0.1, 1e-5,
+                                relu)
+    got = torch.autograd.grad(yk, (xk, wk, bk), dy)
+    if not torch.equal(yk, y):
+        raise SystemExit("phase 15: BatchNormReLU's forward is not the library's")
+    keep = torch.ones_like(x, dtype=torch.bool)
+    mask_k = mask_lib = keep
+    flips, flip_ulps = 0, 0.0
+    if relu:
+        mask_k, mask_lib = bn.relu_mask(x, mean, invstd, w, b), ~(y.detach() <= 0)
+        keep = mask_k == mask_lib
+        flips = int((~keep).sum())
+        if flips:
+            xm = (x.float() - mean[:, None, None]).double()
+            terms = (xm * (invstd * w).double()[:, None, None]).abs() + b.double().abs()[
+                :, None, None]
+            pre = xm * (invstd * w).double()[:, None, None] + b.double()[:, None, None]
+            flip_ulps = float((pre.abs() / terms)[~keep].max()) / 2.0 ** -24
+    plain = bn.batch_norm_backward_plain(x, dy, mean, invstd, w, b, relu)
+
+    def truth(mask):
+        return bn.batch_norm_backward_plain(x.double(), torch.where(mask, dy, 0).double(),
+                                            mean.double(), invstd.double(), w.double(),
+                                            b.double(), False)
+
+    truth_k, truth_lib = truth(mask_k), truth(mask_lib)
+    g = torch.where(mask_k, dy, 0).double()
+    xm = x.double() - mean.double()[:, None, None]
+    mag = ((g * xm).abs().sum((0, 2, 3)) * invstd.double(), g.abs().sum((0, 2, 3)))
+
+    def kept(t):
+        return (torch.where(keep, t[0], 0), t[1], t[2])
+
+    out = {"truth": bn_errors(got, truth_k, mag), "plain": bn_errors(got, plain, mag),
+           "library": bn_errors(kept(got), kept(lib), mag),
+           "library vs truth": bn_errors(kept(lib), kept(truth_lib), mag),
+           "flips' effect": bn_errors(kept(truth_k), kept(truth_lib), mag),
+           "flips": flips, "flip_ulps": flip_ulps,
+           "dx_max_abs_vs_library": float((kept(got)[0].float() - kept(lib)[0].float())
+                                          .abs().max())}
+    out["ok"] = (max(out["truth"] + out["plain"]) <= 1.0
+                 and all(e <= 1.0 + t + f for e, t, f in zip(
+                     out["library"], out["library vs truth"], out["flips' effect"]))
+                 and flips <= BN_MAX_FLIP_SHARE * x.numel() and flip_ulps <= BN_FLIP_ULPS)
+    return out
+
+
+def time_batchnorm(dev) -> list[dict]:
+    """Phase 15: the BatchNorm backward kernels at every layer shape of the
+    main path, with and without the ReLU, through ``BatchNormReLU``, held
+    against an f64 truth, the plain version and the library's backward
+    (``check_batchnorm``); then timed at three shapes in turns with the
+    plain version and the library's backward after a 256 MB write."""
+    from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = {}
+    for chw in BN_SHAPES:
+        shape = (9,) + chw
+        x32 = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
+        dy32 = torch.randn(shape, device=dev, generator=gen)
+        w = torch.rand(chw[0], device=dev, generator=gen) + 0.5
+        b = torch.randn(chw[0], device=dev, generator=gen) * 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            for relu in (True, False):
+                res = check_batchnorm(bn, x32.to(dtype), dy32.to(dtype), w, b, relu)
+                torch.cuda.synchronize()
+                name = f"bn_backward {shape} {str(dtype)[6:]} {'relu' if relu else 'plain'}"
+                log(f"{name}: (dx, dweight, dbias) of the tolerance " + "; ".join(
+                    f"against the {k} " + ", ".join(f"{e:.3f}" for e in res[k])
+                    for k in ("truth", "plain", "library", "library vs truth",
+                              "flips' effect")) +
+                    f"; ReLU mask flips {res['flips']} (largest {res['flip_ulps']:.2f} f32 "
+                    f"ulps from 0); largest dx distance to the library where the masks agree "
+                    f"{res['dx_max_abs_vs_library']:.3e}")
+                for k in ("truth", "plain", "library", "library vs truth", "flips' effect"):
+                    worst[k] = max([worst.get(k, 0.0)] + res[k])
+                worst["flips"] = worst.get("flips", 0) + res["flips"]
+                worst["flip_ulps"] = max(worst.get("flip_ulps", 0.0), res["flip_ulps"])
+                if not res["ok"]:
+                    raise SystemExit(f"{name}: the kernels are off their truth or plain version, "
+                                     f"off the library's backward by more than their tolerance "
+                                     f"and the library's own error, or flip the ReLU's mask "
+                                     f"too often or too far from 0: {res}")
+    log(f"phase 15: {len(BN_SHAPES) * 4} cases held (check_batchnorm); the largest shares of "
+        f"the tolerance, the mask flips in all and the largest flip: {worst}")
+
+    buf = torch.zeros(64 * 1024 * 1024, device=dev)
+
+    def flush():  # the write flush, then about 1 ms more of the card's own work,
+        buf.zero_()  # so that the host enqueues the timed call before it starts
+        torch.cuda._sleep(2_000_000)
+
+    rows = []
+    for shape in BN_TIMED_SHAPES:
+        c = shape[1]
+        x32 = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
+        dy32 = torch.randn(shape, device=dev, generator=gen)
+        w = torch.rand(c, device=dev, generator=gen) + 0.5
+        b = torch.randn(c, device=dev, generator=gen) * 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            y, mean, invstd, leaves = bn_forward(bn, x, w, b, True, grad=True)
+            ms, plain_ms, lib_ms = time_in_turns(
+                (lambda: bn.batch_norm_backward(x, dy, mean, invstd, w, b, True),
+                 lambda: bn.batch_norm_backward_plain(x, dy, mean, invstd, w, b, True),
+                 lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)), flush)
+            size = x.numel() * x.element_size()
+            bound_ms, strict_ms = (k * size / HBM_BYTES_PER_S * 1e3 for k in (5, 3))
+            name = f"bn_backward {tuple(shape)} {str(dtype)[6:]} relu"
+            rows.append({"name": "bn_backward", "shape": list(shape), "dtype": str(dtype)[6:],
+                         "relu": True, "ms": ms, "two_pass_bound_ms": bound_ms,
+                         "strict_bound_ms": strict_ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms})
+            log(f"{name}: {ms:.4f} ms (two-pass bound {bound_ms:.4f} ms, "
+                f"{bound_ms / ms:.1%} of it; strict {strict_ms:.4f} ms, {strict_ms / ms:.1%}); "
+                f"plain {plain_ms:.4f} ms; the library's backward (cuDNN / ATen + the ReLU's) "
+                f"{lib_ms:.4f} ms (in turns, write flush)")
+    return rows
+
+
 # what a phase reads from the phases before it
 PHASE_NEEDS = {5: {2}, 7: {6}, 8: {4, 6}, 9: {6}, 12: {6}}
 
 
 def phases_to_run(argv: list) -> set:
-    """Every phase (2-14) with no arguments, as the script is run to hold the
+    """Every phase (2-15) with no arguments, as the script is run to hold the
     port; ``--phases N ...`` runs those and the phases they read, for a
     shorter run (the ``kernels`` line needs phases 2, 4, 5, 6 and 8)."""
     if not argv:
-        return set(range(2, 15))
-    if argv[0] != "--phases" or not all(a.isdigit() and 2 <= int(a) <= 14 for a in argv[1:]):
-        raise SystemExit("usage: python3 chip_smoke.py [--phases N ...]   (N in 2..14)")
+        return set(range(2, 16))
+    if argv[0] != "--phases" or not all(a.isdigit() and 2 <= int(a) <= 15 for a in argv[1:]):
+        raise SystemExit("usage: python3 chip_smoke.py [--phases N ...]   (N in 2..15)")
     want = {int(a) for a in argv[1:]}
     while True:
         more = want.union(*(PHASE_NEEDS.get(n, set()) for n in want))
@@ -2748,14 +2981,19 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from wt_pse_tpu_torch import native
+    from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
+    from wt_pse_tpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # nvcc and g++ at once
+    with ThreadPoolExecutor(3) as pool:  # nvcc twice and g++ at once
         cuda_build, native_build = pool.submit(cc.build), pool.submit(native.build)
+        bn_build = pool.submit(cuda_lib.build, bn.SOURCE, "batchnorm")
         lib, compiler_out = cuda_build.result()
+        bn_lib, bn_out = bn_build.result()
         native_lib = native_build.result()
-    log(f"built {lib.name} and {native_lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in compiler_out.splitlines():  # each kernel's name, then its numbers
+    log(f"built {lib.name}, {bn_lib.name} and {native_lib.name} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in (compiler_out + bn_out).splitlines():  # each kernel's name, then its numbers
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
     log(card_line())
@@ -2772,14 +3010,14 @@ def main() -> int:
         phase(3, check_against_cpu, dev)
     f32_step_ms = phase(4, main_path, cc, dev) if 4 in want else None
     rows = phase(5, time_kernels, cc, dev, errs) if 5 in want else None
-    p6 = p10 = p11 = p12 = bf16_launches = None
+    p6 = p8 = p10 = p11 = p12 = None
     with tempfile.TemporaryDirectory() as tmp:
         if 6 in want:
             p6 = phase(6, trainer_path, cc, dev, tmp)
         if 7 in want:
             phase(7, eval_path, cc, dev, tmp, p6)
         if 8 in want:
-            bf16_launches = phase(8, bf16_path, cc, dev, tmp, f32_step_ms, p6)
+            p8 = phase(8, bf16_path, cc, dev, tmp, f32_step_ms, p6)
         if 9 in want:
             phase(9, joint_path, cc, dev, tmp, p6)
         if 10 in want:
@@ -2792,6 +3030,7 @@ def main() -> int:
             phase(13, cli_path, tmp, p6)
         if 14 in want:
             phase(14, local_mesh_path, cc, dev, p11)
+    bn_rows = phase(15, time_batchnorm, dev) if 15 in want else None
     for dtype, name in (("float32", "WT_PSE f32"), ("bfloat16", "WT_PSE bf16")):
         if p10 is None or p12 is None:
             break
@@ -2804,9 +3043,15 @@ def main() -> int:
             f"the graph's pool {dp_g['pool_gib']:.2f} against "
             f"{p12[name]['graph_pool_gib']:.2f} GiB")
     for row in rows or []:  # the counts of the trainers' runs: f32 phase 6, bf16 phase 8
-        row["launches"] = (bf16_launches if row["name"].endswith("_bf16")
-                           else p6["launches"])[row["name"]]
+        row["launches"] = (p8 if row["name"].endswith("_bf16") else p6)["launches"][row["name"]]
+    for row in bn_rows or []:
+        run = p8 if row["dtype"] == "bfloat16" else p6
+        if run is not None:
+            key = "bn_backward" + ("_bf16" if row["dtype"] == "bfloat16" else "")
+            row.update(launches=run["launches"][key], steps=run["steps"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    if bn_rows is not None:
+        print(json.dumps({"batchnorm_kernels": bn_rows}))
     if rows is not None:
         print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

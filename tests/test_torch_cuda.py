@@ -45,7 +45,15 @@ loop's, the first step within the scan-vs-loop bounds, 8 launches of each
 kernel a replay, the ranks' states bitwise equal, and a resume under the
 loop; the training CLI's launcher (``launch_ranks``) on every card of a
 machine with two or more: the resume-rollback run ends, every rank leaves
-its process group, and the ranks end bitwise equal.
+its process group, and the ranks end bitwise equal; the BatchNorm backward
+kernels (``ops/batchnorm_cuda.py``) at each training-mode BatchNorm's shape of
+the default step (N = 9), in f32 and bf16, with and without the ReLU, through
+``BatchNormReLU`` after the library's forward, held by
+``chip_smoke.check_batchnorm`` against an f64 truth, their plain version and
+the library's backward through ``F.batch_norm`` + ``F.relu`` (the recomputed
+ReLU mask's flips counted and bounded), their other variants, a
+batch-strided dy, two calls bitwise equal, the inputs they refuse, and the
+module on the card against the CPU at class ``conv``.
 """
 
 import numpy as np
@@ -57,6 +65,7 @@ from wt_pse_tpu_torch.data import augment
 from wt_pse_tpu_torch.data.fundus import FundusDomain
 from wt_pse_tpu_torch.models.common import ModelConfig
 from wt_pse_tpu_torch.ops import covariance_cuda as cc
+from wt_pse_tpu_torch.ops import cuda_lib
 from wt_pse_tpu_torch.ops.whitening import feature_covariance
 from wt_pse_tpu_torch.train.state import init_ensemble
 from wt_pse_tpu_torch.train.step import EPS_KEYS, StepConfig, make_train_step
@@ -652,7 +661,9 @@ def test_graphed_step_matches_the_same_step_eager(cuda, dtype):
     ``chip_smoke.POST_UPDATE``). The bilinear upsample's backward adds with
     atomics on the card, so two eager runs need not agree bitwise; the
     largest parameter differences are printed beside each other, with no
-    bound (as the JAX package's scan-vs-loop test compares no parameters)."""
+    bound (as the JAX package's scan-vs-loop test compares no parameters).
+    A captured step counts 8 launches of each covariance kernel and 148 of
+    the BatchNorm backward (the forward is PyTorch's)."""
     import chip_smoke as cs
 
     res = cs.graph_vs_eager_step(cuda, dict(default_hparams("WT_PSE"), compute_dtype=dtype),
@@ -661,15 +672,23 @@ def test_graphed_step_matches_the_same_step_eager(cuda, dtype):
     assert res["graph_vs_eager"]["err_of_bound"] <= 1.0, res
     key = "launches_bf16" if dtype == "bfloat16" else "launches"
     assert res["launches_a_step"] == {f"covariance_forward.{key}": 8,
-                                      f"covariance_backward.{key}": 8}, res
+                                      f"covariance_backward.{key}": 8,
+                                      f"batch_norm_backward.{key}": 148}, res
+
+
+# the hand-written kernels' launches in an f32 step of the default WT_PSE
+# configuration (the forward's BatchNorm is PyTorch's: no launch of the port's)
+F32_STEP_LAUNCHES = {"covariance_forward": 8, "covariance_backward": 8,
+                     "batch_norm_backward": 148}
 
 
 def test_capture_leaves_the_run_as_it_was_and_replays_count_their_launches(cuda, tmp_path):
     """Capturing the step changes no weight, BatchNorm statistic, Adam state,
     step count or generator state, and the launch counters move by the
-    warm-up's eager steps alone (8 of each kernel a step), not by the
-    capture; each replay adds 8 launches of each kernel and one step."""
-    from wt_pse_tpu_torch.train.graph import WARMUP_STEPS, GraphedStep
+    warm-up's eager steps alone (8 of each covariance kernel and 148
+    BatchNorm backwards a step), not by the capture; each replay adds a
+    step's launches and one step."""
+    from wt_pse_tpu_torch.train.graph import COUNTED, WARMUP_STEPS, GraphedStep
 
     graph, _ = _graph_trainers(cuda, tmp_path)
     state, gen = graph.state, graph._gen
@@ -680,7 +699,7 @@ def test_capture_leaves_the_run_as_it_was_and_replays_count_their_launches(cuda,
         tensors = [t.clone() for ns in state.net_states()
                    for t in list(ns.net.state_dict().values()) +
                    [v for st in ns.opt.state.values() for v in st.values()]]
-        return tensors, gen.get_state(), state.step, cc.launch_counts()
+        return tensors, gen.get_state(), state.step, cuda_lib.launch_counts(COUNTED)
 
     before = snapshot()
     again = GraphedStep(state, graph._train_step, graph.last_batch, capacity=2,
@@ -690,12 +709,13 @@ def test_capture_leaves_the_run_as_it_was_and_replays_count_their_launches(cuda,
     assert all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
     assert len(before[0]) == len(after[0])
     assert torch.equal(before[1], after[1]) and before[2] == after[2]
-    warmup = {k: 8 * WARMUP_STEPS if k[1] == "launches" else 0 for k in before[3]}
+    warmup = {k: F32_STEP_LAUNCHES[k[0]] * WARMUP_STEPS if k[1] == "launches" else 0
+              for k in before[3]}
     assert {k: after[3][k] - n for k, n in before[3].items()} == warmup
     metrics = again.replay(2)
     torch.cuda.synchronize()
-    replays = {k: 16 if k[1] == "launches" else 0 for k in before[3]}
-    assert {k: n - after[3][k] for k, n in cc.launch_counts().items()} == replays
+    replays = {k: F32_STEP_LAUNCHES[k[0]] * 2 if k[1] == "launches" else 0 for k in before[3]}
+    assert {k: n - after[3][k] for k, n in cuda_lib.launch_counts(COUNTED).items()} == replays
     assert state.step == before[2] + 2
     assert all(v.shape == (2,) and torch.isfinite(v).all() for v in metrics.values())
 
@@ -704,7 +724,7 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda, tmp_path):
     """A step that reads a value on the host (``.item()``) cannot be captured:
     the capture raises, nothing falls back to the eager loop, and the step
     count and launch counters are left as the capture found them."""
-    from wt_pse_tpu_torch.train.graph import WARMUP_STEPS, GraphedStep
+    from wt_pse_tpu_torch.train.graph import COUNTED, WARMUP_STEPS, GraphedStep
 
     graph, _ = _graph_trainers(cuda, tmp_path)
 
@@ -716,13 +736,14 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda, tmp_path):
 
     gs = GraphedStep(graph.state, syncing_step, graph.last_batch, capacity=1,
                      batch_fn=graph._batch_fn, data=graph.data, generator=graph._gen)
-    step, counts = graph.state.step, cc.launch_counts()
+    step, counts = graph.state.step, cuda_lib.launch_counts(COUNTED)
     with pytest.raises(RuntimeError):
         gs.capture()
     assert gs.graph is None and graph.state.step == step
     # the eager warm-up's launches stay counted, the failed capture's do not
-    warmup = {k: 8 * WARMUP_STEPS if k[1] == "launches" else 0 for k in counts}
-    assert {k: n - counts[k] for k, n in cc.launch_counts().items()} == warmup
+    warmup = {k: F32_STEP_LAUNCHES[k[0]] * WARMUP_STEPS if k[1] == "launches" else 0
+              for k in counts}
+    assert {k: n - counts[k] for k, n in cuda_lib.launch_counts(COUNTED).items()} == warmup
 
 
 def test_marked_capture_replays_epochs_with_monotone_stamps(cuda, tmp_path):
@@ -874,3 +895,150 @@ def test_launcher_runs_the_resume_rollback_sequence_on_every_card_and_ends(cuda,
     for r in res["ranks"]:
         _assert_dp_graph_rank(r)
     assert len({r["digest"] for r in res["ranks"]}) == 1
+
+
+# -- training-mode BatchNorm + ReLU (ops/batchnorm_cuda.py) --------------------
+
+# (C, H, W) of every training-mode BatchNorm of the default WT_PSE step at
+# 256x256 (batch 9): the layers' own shapes
+BN_SHAPES = [(16, 256, 256), (32, 256, 256), (32, 128, 128), (64, 128, 128), (64, 64, 64),
+             (128, 64, 64), (128, 32, 32), (256, 32, 32), (256, 16, 16)]
+
+
+def bn_inputs(cuda, shape, dtype, seed=0, offset=0):
+    """x = 2 N(0, 1) + 0.5 (a view ``offset`` values into its storage), dy,
+    weight, bias and fresh running statistics, seeded."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n = int(np.prod(shape))
+    x = (torch.randn(n + offset, device=cuda, generator=gen) * 2 + 0.5).to(dtype)
+    x = x[offset:].view(shape)
+    dy = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    c = shape[1]
+    w = torch.rand(c, device=cuda, generator=gen) + 0.5
+    b = torch.randn(c, device=cuda, generator=gen) * 0.5
+    stats = (torch.zeros(c, device=cuda), torch.ones(c, device=cuda),
+             torch.zeros((), dtype=torch.long, device=cuda))
+    return x, dy, w, b, stats
+
+
+def assert_bn_backward_holds(x, dy, w, b, relu):
+    """``chip_smoke.check_batchnorm``: ``BatchNormReLU`` (the library's
+    forward, then the kernels) within the kernels' tolerance of an f64 truth
+    with their ReLU mask and of the plain version, and of the library's
+    backward through the same forward + ``F.relu`` within that tolerance and
+    the library's own distance from its truth (ATen's bf16 channel sums read
+    up to 64x f32_reduce from it); the recomputed mask flips on at most 1e-5
+    of the elements, each within 8 f32 ulps of 0."""
+    import chip_smoke as cs
+    from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
+
+    res = cs.check_batchnorm(bn, x, dy, w, b, relu)
+    print(res)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "plain"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("chw", BN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_batchnorm_kernels_match_plain_versions(cuda, chw, dtype, relu):
+    """Each layer's shape at N = 9 through ``BatchNormReLU`` (cuDNN's forward
+    in f32, ATen's in bf16, then the kernels; one launch counted), as
+    ``assert_bn_backward_holds``."""
+    from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
+
+    x, dy, w, b, _ = bn_inputs(cuda, (9,) + chw, dtype)
+    b0 = bn.batch_norm_backward.launches + bn.batch_norm_backward.launches_bf16
+    assert_bn_backward_holds(x, dy, w, b, relu)
+    torch.cuda.synchronize()
+    assert bn.batch_norm_backward.launches + bn.batch_norm_backward.launches_bf16 - b0 == 1
+
+
+# the kernels' other variants: HW not a multiple of the values in 16 bytes, a
+# base past a 16-byte boundary (one value a load), N = 1, one channel, and a
+# channel of fewer values than a block has threads
+BN_VARIANTS = [((3, 5, 7, 7), 0), ((2, 16, 33, 31), 0), ((9, 16, 64, 64), 1),
+               ((1, 32, 64, 64), 0), ((4, 1, 128, 128), 0), ((2, 64, 4, 4), 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,offset", BN_VARIANTS)
+def test_batchnorm_kernel_variants_match_plain_versions(cuda, shape, offset, dtype):
+    x, dy, w, b, _ = bn_inputs(cuda, shape, dtype, offset=offset)
+    assert_bn_backward_holds(x, dy, w, b, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_batchnorm_backward_takes_a_channel_slice_of_a_gradient(cuda, dtype):
+    """dy with a batch stride of its own (the gradient of one half of a
+    channel concat): the same dx, dweight and dbias as from its contiguous
+    copy, bit for bit."""
+    from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
+
+    x, _, w, b, stats = bn_inputs(cuda, (9, 16, 64, 64), dtype)
+    big = torch.randn(9, 48, 64, 64, device=cuda).to(dtype)
+    dy = big[:, 16:32]
+    assert not dy.is_contiguous()
+    _, mean, invstd = bn.forward_library(x, w, b, *stats, 0.1, 1e-5, True)
+    got = bn.batch_norm_backward(x, dy, mean, invstd, w, b, True)
+    want = bn.batch_norm_backward(x, dy.contiguous(), mean, invstd, w, b, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, v) for g, v in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("chw", [(16, 256, 256), (64, 64, 64), (256, 16, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_two_batchnorm_kernel_calls_are_bitwise_equal(cuda, chw, dtype):
+    """No atomics: two calls give the same dx, dweight and dbias, bit for
+    bit."""
+    from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
+
+    x, dy, w, b, stats = bn_inputs(cuda, (9,) + chw, dtype)
+    _, mean, invstd = bn.forward_library(x, w, b, *stats, 0.1, 1e-5, True)
+    out = [bn.batch_norm_backward(x, dy, mean, invstd, w, b, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
+@pytest.mark.parametrize("bad", ["float64", "float16", "channels_last", "non_contiguous"])
+def test_batchnorm_wrappers_raise_on_unsupported_input(cuda, bad):
+    from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
+
+    x, dy, w, b, _ = bn_inputs(cuda, (2, 16, 8, 8), torch.float32)
+    x = {"float64": x.double(), "float16": x.half(),
+         "channels_last": x.contiguous(memory_format=torch.channels_last),
+         "non_contiguous": x.transpose(2, 3)}[bad]
+    mean, invstd = torch.zeros(16, device=cuda), torch.ones(16, device=cuda)
+    for relu in (True, False):
+        with pytest.raises((TypeError, ValueError)):
+            bn.batch_norm_backward(x, dy.to(x.dtype), mean, invstd, w, b, relu)
+
+
+def test_batchnorm_module_on_the_card_matches_the_cpu(cuda):
+    """``BatchNorm2d(relu=True)`` in training on the card (cuDNN's forward,
+    the backward kernels) against the CPU (``nn.BatchNorm2d`` + ``F.relu``),
+    at class conv: output, input and parameter gradients, running
+    statistics; one backward launch on the card, none on the CPU or in eval
+    mode."""
+    from wt_pse_tpu_torch.models.layers import BatchNorm2d
+    from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
+
+    r = np.random.RandomState(17)
+    x = torch.from_numpy((r.randn(4, 16, 32, 32) * 2 + 0.5).astype(np.float32))
+    w = torch.from_numpy(r.randn(4, 16, 32, 32).astype(np.float32))
+    out = []
+    for dev in ("cpu", cuda):
+        m = BatchNorm2d(16, relu=True).to(dev)
+        xd = x.clone().to(dev).requires_grad_()
+        b0 = bn.batch_norm_backward.launches
+        y = m(xd)
+        (y * w.to(dev)).sum().backward()
+        assert bn.batch_norm_backward.launches - b0 == (0 if dev == "cpu" else 1)
+        m.eval()
+        y_eval = m(x.to(dev))
+        out.append([t.detach().cpu() for t in (y, xd.grad, m.weight.grad, m.bias.grad,
+                                                m.running_mean, m.running_var, y_eval)])
+    names = ("output", "grad", "dweight", "dbias", "running_mean", "running_var", "eval")
+    for name, a, b in zip(names, out[1], out[0]):
+        bound = 1e-5 + 5e-4 * float(b.abs().max())
+        assert float((a - b).abs().max()) <= bound, name

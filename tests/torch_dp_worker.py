@@ -229,7 +229,8 @@ def dp_graph_rank(rank: int, out_dir: str, device: str = "cuda") -> dict:
 
     from wt_pse_tpu_torch.config import default_hparams
     from wt_pse_tpu_torch.data.fundus import FundusDomain
-    from wt_pse_tpu_torch.ops import covariance_cuda as cc
+    from wt_pse_tpu_torch.ops.cuda_lib import launch_counts
+    from wt_pse_tpu_torch.train.graph import COUNTED
     from wt_pse_tpu_torch.train.trainer import Trainer
 
     world = torch.distributed.get_world_size()
@@ -262,11 +263,12 @@ def dp_graph_rank(rank: int, out_dir: str, device: str = "cuda") -> dict:
         if it == 0:
             out["first_step"] = [{k: float(v[0]) for k, v in m.items()} for m in (mg, ml)]
     torch.cuda.synchronize()
-    before = cc.launch_counts()
+    before = launch_counts(COUNTED)
     graph.epoch_step(0, graph.iter_per_epoch)
     torch.cuda.synchronize()
     out["launches_an_epoch"] = {f"{n}.{a}": c - before[n, a]
-                                for (n, a), c in cc.launch_counts().items() if c != before[n, a]}
+                                for (n, a), c in launch_counts(COUNTED).items()
+                                if c != before[n, a]}
     out["launches_a_step"] = {f"{n}.{a}": c for (n, a), c in
                               graph._graph.launches_per_step.items() if c}
     out["iter_per_epoch"] = graph.iter_per_epoch

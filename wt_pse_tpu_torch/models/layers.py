@@ -72,6 +72,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wt_pse_tpu_torch.ops.batchnorm_cuda import BatchNormReLU
 from wt_pse_tpu_torch.parallel.collectives import all_reduce_sum, halo_rows
 
 # the mesh whose ranks hold the slabs of an image's rows inside row_shard, or
@@ -123,11 +124,11 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` with sync BN: in training, with a ``mesh`` (set by
-    :func:`models.common.place` from ``ModelConfig.bn_mesh``), the batch
-    statistics are those of the ranks' batches together, as
-    ``wt_pse_tpu/models/layers.py:68-100`` computes them under an
-    ``axis_name``:
+    """``nn.BatchNorm2d``, followed by a ReLU in every mode when ``relu``, with
+    sync BN: in training, with a ``mesh`` (set by :func:`models.common.place`
+    from ``ModelConfig.bn_mesh``), the batch statistics are those of the
+    ranks' batches together, as ``wt_pse_tpu/models/layers.py:68-100``
+    computes them under an ``axis_name``:
 
     - the mean and the mean of squares, in at least f32, all-reduced and
       divided by the mesh size (one all-reduce, differentiable, so the
@@ -136,16 +137,36 @@ class BatchNorm2d(nn.BatchNorm2d):
     - the running statistics take the unbiased variance at the global count
       ``n * size``, written back in their own dtype.
 
-    Without a mesh, or in eval mode, it is ``nn.BatchNorm2d.forward`` itself,
-    and its ``state_dict`` is ``nn.BatchNorm2d``'s either way. ``torch.nn.
+    In training without a mesh on the card it is
+    ``ops/batchnorm_cuda.py::BatchNormReLU``: ``nn.BatchNorm2d``'s own forward
+    and the ReLU, and one backward through both by the hand-written kernels.
+    Otherwise (eval mode, or a CPU tensor) it is ``nn.BatchNorm2d.forward``
+    itself, then the ReLU. The ``state_dict`` is ``nn.BatchNorm2d``'s either
+    way. ``torch.nn.
     SyncBatchNorm`` is not used: it takes no CPU tensor and all-gathers,
     which gloo does not do for CUDA tensors."""
 
     mesh = None
 
+    def __init__(self, num_features: int, relu: bool = False):
+        super().__init__(num_features)
+        self.relu = relu
+
+    def extra_repr(self) -> str:
+        return super().extra_repr() + (", relu=True" if self.relu else "")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mesh is None or not self.training:
-            return super().forward(x)
+        if self.training and self.mesh is not None:
+            y = self._sync(x)
+        elif self.training and x.is_cuda:
+            return BatchNormReLU.apply(x, self.weight, self.bias, self.running_mean,
+                                       self.running_var, self.num_batches_tracked,
+                                       self.momentum, self.eps, self.relu)
+        else:
+            y = super().forward(x)
+        return F.relu(y) if self.relu else y
+
+    def _sync(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         stats = torch.cat([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))])
@@ -218,53 +239,57 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 class ConvD(nn.Module):
     """Encoder block: [maxpool if not first] -> conv/bn -> conv/bn/act -> conv/bn/act.
-    No activation after bn1 (``wt_pse_tpu/models/layers.py:282-283``)."""
+    No activation after bn1 (``wt_pse_tpu/models/layers.py:282-283``); bn2 and
+    bn3 apply theirs."""
 
     def __init__(self, cin: int, planes: int, first: bool = False,
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.first = first
         self.conv1, self.bn1 = conv3x3(cin, planes, dtype), BatchNorm2d(planes)
-        self.conv2, self.bn2 = conv3x3(planes, planes, dtype), BatchNorm2d(planes)
-        self.conv3, self.bn3 = conv3x3(planes, planes, dtype), BatchNorm2d(planes)
+        self.conv2, self.bn2 = conv3x3(planes, planes, dtype), BatchNorm2d(planes, relu=True)
+        self.conv3, self.bn3 = conv3x3(planes, planes, dtype), BatchNorm2d(planes, relu=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.first:
             x = F.max_pool2d(x, 2)
         x = self.bn1(self.conv1(x))
-        y = F.relu(self.bn2(self.conv2(x)))
-        return F.relu(self.bn3(self.conv3(y)))
+        return self.bn3(self.conv3(self.bn2(self.conv2(x))))
 
 
 class ConvU(nn.Module):
     """Decoder block: [conv/bn/act if not first] -> up2x -> 1x1 conv/bn/act ->
-    concat ``[prev, y]`` -> conv/bn/act (``layers.py:292-339``). The input has
-    ``planes`` channels when first, else ``2 * planes``."""
+    concat ``[prev, y]`` -> conv/bn/act (``layers.py:292-339``); each bn applies
+    its act. The input has ``planes`` channels when first, else ``2 * planes``."""
 
     def __init__(self, planes: int, first: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
         self.first = first
         if not first:
-            self.conv1, self.bn1 = conv3x3(2 * planes, planes, dtype), BatchNorm2d(planes)
-        self.conv2, self.bn2 = conv1x1(planes, planes // 2, dtype), BatchNorm2d(planes // 2)
-        self.conv3, self.bn3 = conv3x3(planes, planes, dtype), BatchNorm2d(planes)
+            self.conv1 = conv3x3(2 * planes, planes, dtype)
+            self.bn1 = BatchNorm2d(planes, relu=True)
+        self.conv2 = conv1x1(planes, planes // 2, dtype)
+        self.bn2 = BatchNorm2d(planes // 2, relu=True)
+        self.conv3, self.bn3 = conv3x3(planes, planes, dtype), BatchNorm2d(planes, relu=True)
 
     def forward(self, x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
         if not self.first:
-            x = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(upsample2x(x))))
+            x = self.bn1(self.conv1(x))
+        y = self.bn2(self.conv2(upsample2x(x)))
         y = torch.cat([prev.to(y.dtype), y], dim=1)
-        return F.relu(self.bn3(self.conv3(y)))
+        return self.bn3(self.conv3(y))
 
 
 class DoubleConv(nn.Module):
-    """(conv3x3 -> BN -> ReLU) x 2 (``layers.py:342-356``)."""
+    """(conv3x3 -> BN -> ReLU) x 2 (``layers.py:342-356``). Each BN applies
+    the ReLU after it; the reference's ``nn.ReLU`` slots are ``nn.Identity``,
+    which keeps the children's indices (and so the ``state_dict`` keys)."""
 
     def __init__(self, cin: int, features: int, dtype: torch.dtype | None = None):
         super().__init__()
         self.double_conv = nn.Sequential(
-            conv3x3(cin, features, dtype), BatchNorm2d(features), nn.ReLU(),
-            conv3x3(features, features, dtype), BatchNorm2d(features), nn.ReLU(),
+            conv3x3(cin, features, dtype), BatchNorm2d(features, relu=True), nn.Identity(),
+            conv3x3(features, features, dtype), BatchNorm2d(features, relu=True), nn.Identity(),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -19,13 +19,10 @@ variant when HW is a multiple of the values in 16 bytes (4 f32, 8 bf16) and
 the pointers are 16-byte aligned, and the same kernel's narrow variant
 otherwise; a bf16 z with C = 16 takes the tensor-core kernels in the 16-byte
 case. Each wrapper counts its launches, a plain integer for each element
-type: ``.launches`` (f32) and ``.launches_bf16``. A host counter moves only
-when the wrapper runs, so a CUDA graph counts its kernels at capture, where
-none runs: ``train/graph.py`` takes the captured launches back out with
-:func:`add_launches` and adds them again for each replay.
+type: ``.launches`` (f32) and ``.launches_bf16``, which ``train/graph.py``
+keeps across a CUDA graph's replays (``ops/cuda_lib.py``).
 
-The library is built with ``nvcc`` at first use into ``build/kernels/`` at the
-root of the checkout (named by the hash of the source, so an edit rebuilds),
+The library is built with ``nvcc`` at first use (``ops/cuda_lib.py::build``)
 and loaded with ``ctypes``. Nothing is built or imported at module import.
 """
 
@@ -33,41 +30,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from wt_pse_tpu_torch.ops import cuda_lib
+from wt_pse_tpu_torch.ops.cuda_lib import raise_on, raw_stream
+
 EPS = 1e-5
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "covariance.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# -Xptxas -v: the compiler output reports each kernel's registers and spills
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
-def build(source: Path = SOURCE, stem: str = "covariance") -> tuple[Path, str]:
-    """Compile ``source`` (``csrc/covariance.cu`` by default) into
-    ``libwtpse_<stem>_<hash>.so`` unless a library of the same source is
-    already built. Returns the library's path and the compiler's output (empty
-    when nothing was compiled)."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libwtpse_{stem}_{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib, proc.stdout + proc.stderr
+def build() -> tuple[Path, str]:
+    """Compile ``csrc/covariance.cu`` unless it is built (:func:`cuda_lib.build`)."""
+    return cuda_lib.build(SOURCE, "covariance")
 
 
 @functools.cache
@@ -105,7 +81,7 @@ def _gram_chunks(device_index: int, elem_bytes: int, b: int, c: int, hw: int,
     own tiles, when C = 16, HW % 8 == 0 and it is aligned); called with that
     device current."""
     n_chunks = _library().wtpse_covariance_gram_chunks(b, c, hw, elem_bytes, int(aligned))
-    _raise_on(-n_chunks if n_chunks < 1 else 0, "covariance gram planning")
+    raise_on(-n_chunks if n_chunks < 1 else 0, "covariance gram planning")
     return n_chunks
 
 
@@ -122,18 +98,6 @@ def _check_cuda_input(z: torch.Tensor) -> tuple[int, int, int]:
         raise ValueError(f"covariance kernels take 1 <= C <= {_max_c()}, HW >= 2 and "
                          f"B >= 1; got shape {tuple(z.shape)}")
     return b, c, h * w
-
-
-def _raw_stream(device_index: int) -> int:
-    """The current stream of a CUDA device as a ``cudaStream_t`` handle. The
-    accessor that torch's own generated kernel launchers use: it builds no
-    ``torch.cuda.Stream`` object, which costs microseconds a call."""
-    return torch._C._cuda_getCurrentRawStream(device_index)
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
 # -- plain versions: exact f32 (f64 stays f64; bf16 is widened, and dz is
@@ -174,15 +138,12 @@ def covariance_forward(z: torch.Tensor) -> torch.Tensor:
                                 z.data_ptr() % 16 == 0)
         partial = torch.empty((b, n_chunks, c * c), dtype=torch.float32, device=dev)
         cov = torch.empty((b, c, c), dtype=torch.float32, device=dev)
-        stream = _raw_stream(dev.index)
+        stream = raw_stream(dev.index)
         suffix = _SUFFIX[z.dtype]
         rc = getattr(lib, f"wtpse_covariance_gram_{suffix}")(
             z.data_ptr(), partial.data_ptr(), cov.data_ptr(), b, c, hw, EPS, stream)
-    _raise_on(rc, "covariance gram")
-    if suffix == "bf16":
-        covariance_forward.launches_bf16 += 1
-    else:
-        covariance_forward.launches += 1
+    raise_on(rc, "covariance gram")
+    cuda_lib.count(covariance_forward, z.dtype)
     return cov
 
 
@@ -205,36 +166,17 @@ def covariance_backward(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     dz = torch.empty_like(z)
     dev = z.device
     with torch.cuda.device(dev):
-        stream = _raw_stream(dev.index)
+        stream = raw_stream(dev.index)
         suffix = _SUFFIX[z.dtype]
         rc = getattr(lib, f"wtpse_covariance_dz_{suffix}")(
             z.data_ptr(), g.data_ptr(), dz.data_ptr(), b, c, hw, stream)
-    _raise_on(rc, "covariance dz")
-    if suffix == "bf16":
-        covariance_backward.launches_bf16 += 1
-    else:
-        covariance_backward.launches += 1
+    raise_on(rc, "covariance dz")
+    cuda_lib.count(covariance_backward, z.dtype)
     return dz
 
 
 covariance_backward.launches = 0
 covariance_backward.launches_bf16 = 0
-
-
-def launch_counts() -> dict[tuple[str, str], int]:
-    """Every launch counter, keyed by (wrapper, counter name)."""
-    return {(fn.__name__, attr): getattr(fn, attr)
-            for fn in (covariance_forward, covariance_backward)
-            for attr in ("launches", "launches_bf16")}
-
-
-def add_launches(counts: dict[tuple[str, str], int], times: int = 1) -> None:
-    """Add ``times`` x ``counts`` (keyed as :func:`launch_counts`) to the
-    counters: the launches of a captured graph, once for each replay."""
-    wrappers = {fn.__name__: fn for fn in (covariance_forward, covariance_backward)}
-    for (name, attr), n in counts.items():
-        fn = wrappers[name]
-        setattr(fn, attr, getattr(fn, attr) + n * times)
 
 
 class Covariance(torch.autograd.Function):

@@ -25,9 +25,10 @@ What the graph holds, and how the rest of the port keeps it valid:
   replays decides what they draw.
 
 Host state that only the capture sees is kept by the replay instead: the
-state's ``step`` count, and the covariance kernels' launch counters
-(``ops/covariance_cuda.py``), from which the capture's launches are taken
-back and to which each replay adds them.
+state's ``step`` count, and the hand-written kernels' launch counters (the
+covariance's, ``ops/covariance_cuda.py``, and BatchNorm's,
+``ops/batchnorm_cuda.py``), from which the capture's launches are taken back
+and to which each replay adds them (:attr:`GraphedStep.launches_per_step`).
 
 Data parallelism (``parallel/dp.py::make_dp_fused``, the counterpart of
 JAX's ``epoch`` over ``make_dp_fused``): the graph holds the step's NCCL
@@ -73,11 +74,15 @@ from typing import Callable
 
 import torch
 
+from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
 from wt_pse_tpu_torch.ops import covariance_cuda as cc
+from wt_pse_tpu_torch.ops.cuda_lib import add_launches, launch_counts
 from wt_pse_tpu_torch.train.state import WTPSETrainState, init_adam_state
 from wt_pse_tpu_torch.utils.trace import DeviceMarks, Tracer
 
 WARMUP_STEPS = 3
+# the hand-written kernels' wrappers, each counting its launches by element type
+COUNTED = (cc.covariance_forward, cc.covariance_backward, bn.batch_norm_backward)
 
 
 class GraphedStep:
@@ -250,7 +255,7 @@ class GraphedStep:
     def _record(self, side: torch.cuda.Stream) -> None:
         """Capture :meth:`body` on ``side`` under the sync debug mode
         "error"; then wait for the card."""
-        step, before = self.state.step, cc.launch_counts()
+        step, before = self.state.step, launch_counts(COUNTED)
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
@@ -265,9 +270,9 @@ class GraphedStep:
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
         finally:  # the host state only the capture saw move, also when it fails
-            after = cc.launch_counts()
+            after = launch_counts(COUNTED)
             self.launches_per_step = {k: after[k] - before[k] for k in after}
-            cc.add_launches(self.launches_per_step, -1)
+            add_launches(self.launches_per_step, -1, COUNTED)
             self.state.step = step
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
@@ -288,5 +293,5 @@ class GraphedStep:
             with self.tracer.span("replay", step=self.state.step + i):
                 self.graph.replay()
         self.state.step += n
-        cc.add_launches(self.launches_per_step, n)
+        add_launches(self.launches_per_step, n, COUNTED)
         return self.read(n)

@@ -28,9 +28,9 @@ holds one epoch's marks with the brackets that convert them to the host
 clock: a stamp bracketed by two host-clock reads around a synchronize, at
 the epoch's start and end, and linear between them.
 
-The library is built at first use, as ``ops/covariance_cuda.py`` builds its
-own: nvcc into ``build/kernels/``, named by the hash of the source, loaded
-with ctypes. Nothing is built or loaded at import.
+The library is built at first use, as the kernels' libraries are
+(``ops/cuda_lib.py::build``): nvcc into ``build/kernels/``, named by the hash
+of the source, loaded with ctypes. Nothing is built or loaded at import.
 """
 
 from __future__ import annotations
@@ -218,9 +218,9 @@ def write_chrome(path, events: list[dict], clocks: list[dict]) -> None:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    from wt_pse_tpu_torch.ops import covariance_cuda
+    from wt_pse_tpu_torch.ops import cuda_lib
 
-    path, _ = covariance_cuda.build(STAMP_SOURCE, "stamp")
+    path, _ = cuda_lib.build(STAMP_SOURCE, "stamp")
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wtpse_stamp.argtypes, lib.wtpse_stamp.restype = [p, p, i, i, p], i
