@@ -11,11 +11,20 @@ line a reading, each with every number of ``harness/check.py``:
   loaded and its Adam state zeroed, and the first steps run through the
   captured graph as in a run;
 - ``again``: the reference against itself, run twice on the card;
+- ``again_rounded``: the reference against a copy of itself whose every
+  training-mode BatchNorm forward takes its mean and variance in float64 and
+  rounds once to the output type (:func:`forward_f64`): as exact as cuDNN or
+  more, but rounding otherwise, so that a few OD logits at the 0.75 threshold
+  of the OC phases' ROI land on its other side;
 - ``control``: the reference in the precision below the configuration's
   (``control_precision``: TF32 operands for float32, fp8 operands for
   bfloat16), put in the program's place;
 - ``half_batch``: the reference with every loss taken over the first half of
   the batch, the mean over the rest;
+- ``roi_full``, ``roi_threshold``, ``roi_post_update``, ``pos_weight_one``:
+  the reference with a fault of the OC phases' ROI planted
+  (``reference/step.py``): the whole image, the cut at 0.5, the OD logits
+  after phase 1's update, ``pos_weight`` at 1;
 - ``again_det`` (only when asked for with ``--kinds``): the reference against
   itself with ``torch.use_deterministic_algorithms`` on and the bilinear
   upsample as matmuls with its weights (``F.interpolate``'s backward sums
@@ -63,7 +72,50 @@ def follow(cell, pools, weights, gen_seed, device, precision=None, fault=None):
                                     device, fault)
 
 
-KINDS = ("again", "control", "half_batch")
+KINDS = ("again", "again_rounded", "control", "half_batch", "roi_full", "roi_threshold",
+         "roi_post_update", "pos_weight_one")
+
+
+def forward_f64(x, weight, bias, running_mean, running_var, num_batches_tracked,
+                momentum: float, eps: float, relu: bool = False):
+    """Training-mode BatchNorm (+ ReLU) with the batch's mean and variance
+    taken in float64 and y rounded once to ``x``'s type: (y, mean, invstd),
+    the statistics in f32, with the running statistics and
+    ``num_batches_tracked`` updated as ``nn.BatchNorm2d`` updates them. The
+    signature of the program's ``ops/batchnorm_cuda.py::forward_library``."""
+    import torch
+
+    xd = x.double()
+    var, mean = torch.var_mean(xd, (0, 2, 3), correction=0)
+    invstd = torch.rsqrt(var + eps)
+    col = (slice(None), None, None)
+    y = ((xd - mean[col]) * (invstd * weight.double())[col] + bias.double()[col]).to(x.dtype)
+    with torch.no_grad():
+        n = x.numel() // x.shape[1]
+        running_mean.mul_(1 - momentum).add_(momentum * mean.to(running_mean.dtype))
+        running_var.mul_(1 - momentum).add_(momentum * (var * n / max(n - 1, 1))
+                                            .to(running_var.dtype))
+        num_batches_tracked.add_(1)
+    return torch.relu(y) if relu else y, mean.detach().float(), invstd.detach().float()
+
+
+def rounded_reference(cell, pools, weights, gen_seed, device):
+    """The reference with every training-mode ``nn.BatchNorm2d`` forward by
+    :func:`forward_f64`."""
+    from unittest import mock
+
+    from torch import nn
+
+    before = nn.BatchNorm2d.forward
+
+    def forward(self, x):
+        if not self.training:
+            return before(self, x)
+        return forward_f64(x, self.weight, self.bias, self.running_mean, self.running_var,
+                           self.num_batches_tracked, self.momentum, self.eps)[0]
+
+    with mock.patch.object(nn.BatchNorm2d, "forward", forward):
+        return follow(cell, pools, weights, gen_seed, device)
 
 
 def upsample_by_matmul(x):
@@ -114,6 +166,8 @@ def readings(cell, seed: int, device, kinds=KINDS) -> list[dict]:
             got = deterministic_reference(cell, pools, weights, gen_seed, device)
         elif kind == "again":
             got = follow(cell, pools, weights, gen_seed, device)
+        elif kind == "again_rounded":
+            got = rounded_reference(cell, pools, weights, gen_seed, device)
         elif kind == "control":
             got = follow(cell, pools, weights, gen_seed, device, cell.config["control_precision"])
         else:

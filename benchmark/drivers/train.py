@@ -120,7 +120,8 @@ def first_steps(trainer, weights: dict, gen_seed: int, steps: int, beta1: float
     rest = trainer.epoch_step(1, steps - 1)
     return check.Readings(step_losses(first) + step_losses(rest), grad,
                           check.change_norms(nets, weights),
-                          {k: v.cpu() for k, v in trainer.last_batch.items()})
+                          {k: v.cpu() for k, v in trainer.last_batch.items()},
+                          torch.cat([first["pos_weight_oc"], rest["pos_weight_oc"]]).tolist())
 
 
 def run(job) -> dict:

@@ -11,11 +11,27 @@ phase 1's teacher, phase 2's teacher and student, phase 3's teacher and
 phase 4's teacher and student). Seeded alike on the same device, the two
 sides see the same batches and noise.
 
+The OC phases (3-4) train on a ROI cut from phase 1's detached OD logits:
+``od_pred = sigmoid(out_od) > 0.75``, the image with every pixel outside it
+set to -1, and the OC segmentation loss masked by ``od_pred`` with
+``pos_weight`` = the ROI's pixels over its cup pixels (1 where that is not
+finite). :func:`train_step` returns that ``pos_weight`` beside the losses.
+
 ``fault`` plants a known fault for the benchmark's own checks:
-``"half_batch"`` takes every loss over the first half of the batch only.
+
+- ``"half_batch"``: every loss over the first half of the batch only;
+- ``"roi_full"``: the OC phases see the whole image, ``od_pred`` all ones;
+- ``"roi_threshold"``: the ROI cut at 0.5 in place of 0.75;
+- ``"roi_post_update"``: the ROI from the OD logits after phase 1's Adam
+  step, by one more forward of the OD net on the same batch, whose draws come
+  from a generator of its own in the state phase 1 drew from: the batch and
+  every later draw stay as a clean step's;
+- ``"pos_weight_one"``: ``pos_weight`` fixed at 1.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -175,24 +191,40 @@ def shape_phase(main, stud, opt, image, mask, domains, per_domain, policy, gen, 
             "loss_ins_wt_shape_ii": ii, "loss_dom_wt_shape": dom}
 
 
+def oc_roi(out_od, image, target_oc, threshold: float = 0.75):
+    """(od_pred, ROI image, pos_weight) from the OD logits."""
+    od_pred = (torch.sigmoid(out_od) > threshold).to(image.dtype)
+    roi = (image + 1.0) * od_pred - 1.0
+    pos_w = torch.sum(od_pred) / torch.sum(od_pred * target_oc)
+    return od_pred, roi, torch.where(torch.isfinite(pos_w), pos_w, torch.ones_like(pos_w))
+
+
 def train_step(nets: dict, opts: dict, pools: dict, domains: int, per_domain: int,
                policy: Policy, gen, fault: str | None = None):
     """One iteration: (the batch it trained on, its losses by the program's
-    metric names). ``nets`` and ``opts`` are keyed by ``nets.NETS``."""
+    metric names, the OC loss's ``pos_weight``). ``nets`` and ``opts`` are
+    keyed by ``nets.NETS``."""
     batch = sample_batch(pools, per_domain, gen, policy)
     image, t_od, t_oc = batch["image"], batch["target_od"], batch["target_oc"]
     keep = image.shape[0] // 2 if fault == "half_batch" else image.shape[0]
     common = (domains, per_domain, policy, gen, keep)
+    if fault == "roi_post_update":
+        replay = torch.Generator(device=image.device)
+        replay.set_state(gen.get_state())
 
     out_od, m1 = seg_phase(
         nets["od"], opts["od"], image, t_od,
         lambda o: F.binary_cross_entropy_with_logits(o[:keep], t_od[:keep]), *common)
+    if fault == "roi_post_update":
+        with torch.no_grad():
+            out_od, _ = nets["od"](image, t_od, image, replay)
     m2 = shape_phase(nets["od"], nets["od_shape"], opts["od_shape"], image, t_od, *common)
 
-    od_pred = (torch.sigmoid(out_od) > 0.75).to(image.dtype)
-    roi = (image + 1.0) * od_pred - 1.0
-    pos_w = torch.sum(od_pred) / torch.sum(od_pred * t_oc)
-    pos_w = torch.where(torch.isfinite(pos_w), pos_w, torch.ones_like(pos_w))
+    if fault == "roi_full":
+        out_od = torch.full_like(out_od, math.inf)
+    od_pred, roi, pos_w = oc_roi(out_od, image, t_oc, 0.5 if fault == "roi_threshold" else 0.75)
+    if fault == "pos_weight_one":
+        pos_w = torch.ones_like(pos_w)
     _, m3 = seg_phase(
         nets["oc"], opts["oc"], roi, t_oc,
         lambda o: F.binary_cross_entropy_with_logits((o * od_pred)[:keep], t_oc[:keep],
@@ -201,4 +233,4 @@ def train_step(nets: dict, opts: dict, pools: dict, domains: int, per_domain: in
 
     losses = dict(m1, **m2)
     losses.update({k + "_oc": v for k, v in {**m3, **m4}.items()})
-    return batch, {k: v.detach() for k, v in losses.items()}
+    return batch, {k: v.detach() for k, v in losses.items()}, pos_w.detach()
