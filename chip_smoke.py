@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
 
 1. build the hand-written kernels from ``wt_pse_tpu_torch/csrc`` (nvcc, sm_90a:
-   the covariance and the BatchNorm libraries)
+   the covariance, the BatchNorm and the upsample libraries)
    and, at the same time, the native eval operators (``csrc/evalops.cpp``,
    g++), and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, forward and
@@ -24,7 +24,8 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
 4. the main path: full-width training steps (256x256, batch 9 = 3 domains x 3,
    base width 16, f32, TF32 off) from seeded weights on a synthetic batch, with
    the launch counts set to 0 just before and read just after (8 of each
-   covariance kernel and 148 BatchNorm backwards a step); two more steady
+   covariance kernel, 148 BatchNorm backwards, 32 upsample forwards and 24
+   upsample backwards a step); two more steady
    steps traced with ``torch.profiler`` (device time by kernel, the card's busy
    share of the step: the breakdown in PERF.md; the hand-written kernels'
    device time a call); both kernels held against their plain versions on the
@@ -82,9 +83,10 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    finite logits, a steady call timed;
 8. the bf16 main path (``compute_dtype='bfloat16'``): 8 full-width bf16
    steps from seeded weights on one fixed batch, with the launch counts set
-   to 0 just before and read just after (8 of each bf16 covariance kernel and
-   148 bf16 BatchNorm backwards a step, no f32 launch; the Trainer's run
-   below likewise), finite losses and a loss that falls over the 8 steps, f32
+   to 0 just before and read just after (8 of each bf16 covariance kernel,
+   148 bf16 BatchNorm backwards, 32 bf16 upsample forwards and 24 backwards a
+   step, no f32 launch; the Trainer's run below likewise but the upsample's,
+   which its validations launch too), finite losses and a loss that falls over the 8 steps, f32
    parameters and BatchNorm statistics after them, the steady bf16 step time
    beside phase 4's f32 step of the same call, a ``torch.profiler`` breakdown
    of two more steps by layer (convolutions, BatchNorm, casts, the card's busy
@@ -110,7 +112,7 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    ``POST_UPDATE`` metrics at class bf16, as phase 12); 2 epochs of 4 steps
    of each through ``train()`` with the launch counts set to 0 just before
    and read just after (8 of each kernel of the dtype a step, and 8 a step
-   in the graph); one more epoch of each traced (the card's busy share), the
+   in the graph beside 32 upsample forwards and 24 backwards); one more epoch of each traced (the card's busy share), the
    epoch and host enqueue times, the capture time and the graph's pool;
    ``run_meta.json`` naming each driver; in f32 one step's metrics within
    rtol 2e-3 of a ``dp=False`` trainer's on the same state and draws and a
@@ -221,6 +223,15 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    (autograd through the same forward), a yardstick the port never calls;
    beside each, the two-pass bound (x and dy read twice, dx written) and the
    strict one (each byte once) at 3.35 TB/s.
+16. the 2x bilinear upsample's kernels (``ops/upsample_cuda.py``) at the
+   decoders' four shapes (batch 9; ``UP_SHAPES``), in f32 and bf16: the
+   forward held bit for bit to the ``F.interpolate`` calls it replaces (two
+   passes in bf16), the backward bit for bit to its plain version and within
+   f32_reduce (bf16: half an ulp) of an f64 ``F.interpolate`` backward; then
+   each timed in turns with ATen's forward and backward kernels (in bf16 each
+   pass alone, and both) after a 256 MB write and about 1 ms of sleep, beside
+   the bound: x read and y written once (forward), dy read and dx written
+   once (backward), at 3.35 TB/s.
 
 ``python3 chip_smoke.py --phases N ...`` runs only those phases (and the
 ones they read); with no arguments it runs them all.
@@ -228,7 +239,8 @@ ones they read); with no arguments it runs them all.
 The card's name and power limit follow the build line. With phase 15 a JSON
 ``batchnorm_kernels`` record of its timed rows comes before the ``kernels``
 line (``launches``: the BatchNorm backwards of the row's type counted in the
-trainer runs of phases 6 and 8, ``steps`` their steps).
+trainer runs of phases 6 and 8, ``steps`` their steps); with phase 16 an
+``upsample_kernels`` record of its timed rows before that.
 The line before the last is a JSON ``kernels`` record of four rows, the f32 and the bf16 variant
 of each kernel (``launches`` counted in the trainer runs of phases 6 and 8);
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or the
@@ -252,6 +264,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
@@ -313,8 +326,7 @@ SCAN_RTOL, SCAN_ATOL = 1e-4, 1e-6
 # the metrics a step reads through a teacher after that teacher's Adam update.
 # An update that differs by an ulp (the capturable Adam's f32 bias
 # correction), or by 2 lr where a gradient at noise flips the sign of Adam's
-# first step (the upsample's backward adds with atomics), moves the bf16
-# teacher's roundings: two eager runs of one bf16 step already differ there.
+# first step, moves the bf16 teacher's roundings.
 # In bf16 they are held at class bf16; every other metric, and all in f32, at
 # the scan-vs-loop bounds
 POST_UPDATE = ("loss_kd", "loss_kd_oc")
@@ -405,12 +417,34 @@ def check_kernels(cc, dev) -> dict:
 BN_LAUNCHES_A_STEP = 148  # training-mode BatchNorm backwards in a default WT_PSE step
 
 
+UP_FORWARDS_A_STEP = 32   # upsample forwards in a default WT_PSE step (8 U-Nets x 4)
+UP_BACKWARDS_A_STEP = 24  # ... and backwards (the 2 teachers' U-Nets run without grad)
+
+
 def zero_counts(cc) -> None:
     """Sets every kernel's launch count to 0."""
     from wt_pse_tpu_torch.ops.batchnorm_cuda import batch_norm_backward
+    from wt_pse_tpu_torch.ops.upsample_cuda import upsample2x_backward, upsample2x_forward
 
-    for fn in (cc.covariance_forward, cc.covariance_backward, batch_norm_backward):
+    for fn in (cc.covariance_forward, cc.covariance_backward, batch_norm_backward,
+               upsample2x_forward, upsample2x_backward):
         fn.launches = fn.launches_bf16 = 0
+
+
+def expect_up_counts(steps: int, bf16: bool, what: str) -> None:
+    """The upsample kernels' launches since ``zero_counts``: ``steps`` default
+    steps' of the row's type, none of the other."""
+    from wt_pse_tpu_torch.ops.upsample_cuda import upsample2x_backward, upsample2x_forward
+
+    got = {f"{fn.__name__}.{a}": getattr(fn, a) for fn in (upsample2x_forward,
+                                                           upsample2x_backward)
+           for a in ("launches", "launches_bf16")}
+    key, other = ("launches_bf16", "launches") if bf16 else ("launches", "launches_bf16")
+    want = {f"upsample2x_forward.{key}": UP_FORWARDS_A_STEP * steps,
+            f"upsample2x_backward.{key}": UP_BACKWARDS_A_STEP * steps,
+            f"upsample2x_forward.{other}": 0, f"upsample2x_backward.{other}": 0}
+    if got != want:
+        raise SystemExit(f"{what}: expected upsample launches {want}, got {got}")
 
 
 def read_bn_counts() -> dict:
@@ -635,6 +669,7 @@ def main_path(cc, dev) -> float:
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     expect_counts(launches, 8 * STEPS, 0, "phase 4")
     expect_bn_counts(bn_launches, BN_LAUNCHES_A_STEP * STEPS, 0, "phase 4")
+    expect_up_counts(STEPS, False, "phase 4")
     profile_eager_steps(step, state, batch, gen, steady_ms)
 
     # the maps in train mode, as the step makes them; the BatchNorm running
@@ -1193,6 +1228,7 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
     log(f"phase 8 covariance launches: {launches}; BatchNorm backward launches {bn_launches}")
     expect_counts(launches, 0, 8 * STEPS_BF16, "phase 8 steps")
     expect_bn_counts(bn_launches, 0, BN_LAUNCHES_A_STEP * STEPS_BF16, "phase 8 steps")
+    expect_up_counts(STEPS_BF16, True, "phase 8 steps")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"phase 8: the bf16 loss did not fall over {STEPS_BF16} steps: {losses}")
     dtypes = {str(t.dtype) for ns in state.net_states() for n, t in
@@ -1595,10 +1631,14 @@ def dp_path(tmp: str) -> dict:
                 raise SystemExit(f"phase 10 (a) {dtype} {driver}: {len(r['records'])} epoch "
                                  f"records, non-finite at {bad}")
         key = "launches_bf16" if n_bf16 else "launches"
+        # sync BatchNorm launches none of the port's kernels
         if g["launches_a_step"] != {f"covariance_forward.{key}": 8,
-                                    f"covariance_backward.{key}": 8}:
+                                    f"covariance_backward.{key}": 8,
+                                    f"upsample2x_forward.{key}": UP_FORWARDS_A_STEP,
+                                    f"upsample2x_backward.{key}": UP_BACKWARDS_A_STEP}:
             raise SystemExit(f"phase 10 (a) {dtype}: the graph holds launches "
-                             f"{g['launches_a_step']} a step, not 8 of each kernel")
+                             f"{g['launches_a_step']} a step, not 8 of each covariance kernel "
+                             f"and {UP_FORWARDS_A_STEP} + {UP_BACKWARDS_A_STEP} upsamples")
         if rec["run_meta_driver"] != {"graph": "graph", "loop": "eager"}:
             raise SystemExit(f"phase 10 (a) {dtype}: run_meta records the drivers "
                              f"{rec['run_meta_driver']}")
@@ -2947,18 +2987,111 @@ def time_batchnorm(dev) -> list[dict]:
     return rows
 
 
+# (N, C, H, W) of the decoders' four upsamples in the default step
+UP_SHAPES = [(9, 256, 16, 16), (9, 128, 32, 32), (9, 64, 64, 64), (9, 32, 128, 128)]
+
+
+def up_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def time_upsample(dev) -> list[dict]:
+    """Phase 16: the upsample kernels at ``UP_SHAPES`` in f32 and bf16, held
+    and then timed in turns with ATen's kernels (module docstring). Returns
+    one row a shape and type: the kernels' and ATen's milliseconds (in bf16
+    ATen's two passes apart too), the bytes and the bound of each way."""
+    from wt_pse_tpu_torch.ops import upsample_cuda as up
+
+    aten_bw = torch.ops.aten.upsample_bilinear2d_backward
+    gen = torch.Generator(device=dev).manual_seed(16)
+    buf = torch.zeros(64 * 1024 * 1024, device=dev)
+
+    def flush():  # the write flush, then about 1 ms more of the card's own work
+        buf.zero_()
+        torch.cuda._sleep(2_000_000)
+
+    def interp(x, scale):
+        return F.interpolate(x, scale_factor=scale, mode="bilinear", align_corners=False)
+
+    rows = []
+    for shape in UP_SHAPES:
+        n, c, h, w = shape
+        big = (n, c, 2 * h, 2 * w)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(shape, device=dev, generator=gen) * 3).to(dtype)
+            dy = torch.randn(big, device=dev, generator=gen).to(dtype)
+            bf16 = dtype == torch.bfloat16
+            mid = interp(x, (2, 1)) if bf16 else None
+            want = interp(mid, (1, 2)) if bf16 else interp(x, 2)
+            y, dx = up.upsample2x_forward(x), up.upsample2x_backward(dy)
+            x64 = torch.zeros(shape, dtype=torch.float64, device=dev, requires_grad=True)
+            interp(x64, 2).backward(dy.double())
+            err = (bf16_ulp_error(dx, x64.grad) if bf16 else
+                   float((dx.double() - x64.grad).abs().max() / x64.grad.abs().max())
+                   / F32_REDUCE_RTOL)
+            name = f"upsample2x {shape} {str(dtype)[6:]}"
+            if not torch.equal(up_bits(y), up_bits(want)):
+                raise SystemExit(f"{name}: the forward kernel is not ATen's, bit for bit")
+            if not torch.equal(dx, up.upsample2x_backward_plain(dy)) or err > (0.5 if bf16
+                                                                                else 1.0):
+                raise SystemExit(f"{name}: the backward kernel is off its plain version or "
+                                 f"its f64 truth ({err:.3f} of the tolerance)")
+            fns = {"forward": lambda: up.upsample2x_forward(x),
+                   "backward": lambda: up.upsample2x_backward(dy)}
+            if bf16:
+                dmid = torch.randn(mid.shape, device=dev, generator=gen).to(dtype)
+                fns.update({
+                    "aten_forward_pass1": lambda: interp(x, (2, 1)),
+                    "aten_forward_pass2": lambda: interp(mid, (1, 2)),
+                    "aten_forward": lambda: interp(interp(x, (2, 1)), (1, 2)),
+                    "aten_backward_pass2": lambda: aten_bw(dy, [2 * h, 2 * w], list(mid.shape),
+                                                           False, 1.0, 2.0),
+                    "aten_backward_pass1": lambda: aten_bw(dmid, [2 * h, w], list(shape),
+                                                           False, 2.0, 1.0),
+                    "aten_backward": lambda: aten_bw(
+                        aten_bw(dy, [2 * h, 2 * w], list(mid.shape), False, 1.0, 2.0),
+                        [2 * h, w], list(shape), False, 2.0, 1.0)})
+            else:
+                fns.update({"aten_forward": lambda: interp(x, 2),
+                            "aten_backward": lambda: aten_bw(dy, [2 * h, 2 * w], list(shape),
+                                                             False, 2.0, 2.0)})
+            ms = dict(zip(fns, time_in_turns(list(fns.values()), flush)))
+            nbytes = x.element_size() * (x.numel() + dy.numel())  # each way
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            row = {"name": "upsample2x", "shape": list(shape), "dtype": str(dtype)[6:],
+                   "bytes": nbytes, "bound_ms": bound_ms, "backward_err_of_tolerance": err,
+                   **{f"{k}_ms": v for k, v in ms.items()}}
+            rows.append(row)
+            log(f"{name}: forward {ms['forward']:.4f} ms, backward {ms['backward']:.4f} ms "
+                f"(bound {bound_ms:.4f} ms each way: {bound_ms / ms['forward']:.1%}, "
+                f"{bound_ms / ms['backward']:.1%}); ATen " + ", ".join(
+                    f"{k[5:]} {v:.4f} ms" for k, v in ms.items() if k.startswith("aten")) +
+                f" (in turns, write flush); backward {err:.3f} of its tolerance off the f64 "
+                f"truth")
+    for dtype in ("float32", "bfloat16"):
+        mine = [r for r in rows if r["dtype"] == dtype]
+        tot = {k: sum(r[k] for r in mine) for k in ("forward_ms", "backward_ms", "aten_forward_ms",
+                                                    "aten_backward_ms", "bound_ms")}
+        log(f"phase 16 {dtype}, the four shapes (one U-Net's upsamples): forward "
+            f"{tot['forward_ms']:.4f} ms against ATen's {tot['aten_forward_ms']:.4f}, backward "
+            f"{tot['backward_ms']:.4f} against {tot['aten_backward_ms']:.4f}; bound "
+            f"{tot['bound_ms']:.4f} ms each way ({tot['bound_ms'] / tot['forward_ms']:.1%}, "
+            f"{tot['bound_ms'] / tot['backward_ms']:.1%})")
+    return rows
+
+
 # what a phase reads from the phases before it
 PHASE_NEEDS = {5: {2}, 7: {6}, 8: {4, 6}, 9: {6}, 12: {6}}
 
 
 def phases_to_run(argv: list) -> set:
-    """Every phase (2-15) with no arguments, as the script is run to hold the
+    """Every phase (2-16) with no arguments, as the script is run to hold the
     port; ``--phases N ...`` runs those and the phases they read, for a
     shorter run (the ``kernels`` line needs phases 2, 4, 5, 6 and 8)."""
     if not argv:
-        return set(range(2, 16))
-    if argv[0] != "--phases" or not all(a.isdigit() and 2 <= int(a) <= 15 for a in argv[1:]):
-        raise SystemExit("usage: python3 chip_smoke.py [--phases N ...]   (N in 2..15)")
+        return set(range(2, 17))
+    if argv[0] != "--phases" or not all(a.isdigit() and 2 <= int(a) <= 16 for a in argv[1:]):
+        raise SystemExit("usage: python3 chip_smoke.py [--phases N ...]   (N in 2..16)")
     want = {int(a) for a in argv[1:]}
     while True:
         more = want.union(*(PHASE_NEEDS.get(n, set()) for n in want))
@@ -2984,16 +3117,20 @@ def main() -> int:
     from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
     from wt_pse_tpu_torch.ops import cuda_lib
 
+    from wt_pse_tpu_torch.ops import upsample_cuda as up
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # nvcc twice and g++ at once
+    with ThreadPoolExecutor(4) as pool:  # nvcc three times and g++ at once
         cuda_build, native_build = pool.submit(cc.build), pool.submit(native.build)
         bn_build = pool.submit(cuda_lib.build, bn.SOURCE, "batchnorm")
+        up_build = pool.submit(cuda_lib.build, up.SOURCE, "upsample")
         lib, compiler_out = cuda_build.result()
         bn_lib, bn_out = bn_build.result()
+        up_lib, up_out = up_build.result()
         native_lib = native_build.result()
-    log(f"built {lib.name}, {bn_lib.name} and {native_lib.name} in "
+    log(f"built {lib.name}, {bn_lib.name}, {up_lib.name} and {native_lib.name} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in (compiler_out + bn_out).splitlines():  # each kernel's name, then its numbers
+    for line in (compiler_out + bn_out + up_out).splitlines():  # each kernel, then its numbers
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
     log(card_line())
@@ -3031,6 +3168,7 @@ def main() -> int:
         if 14 in want:
             phase(14, local_mesh_path, cc, dev, p11)
     bn_rows = phase(15, time_batchnorm, dev) if 15 in want else None
+    up_rows = phase(16, time_upsample, dev) if 16 in want else None
     for dtype, name in (("float32", "WT_PSE f32"), ("bfloat16", "WT_PSE bf16")):
         if p10 is None or p12 is None:
             break
@@ -3050,6 +3188,8 @@ def main() -> int:
             key = "bn_backward" + ("_bf16" if row["dtype"] == "bfloat16" else "")
             row.update(launches=run["launches"][key], steps=run["steps"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    if up_rows is not None:
+        print(json.dumps({"upsample_kernels": up_rows}))
     if bn_rows is not None:
         print(json.dumps({"batchnorm_kernels": bn_rows}))
     if rows is not None:

@@ -53,12 +53,21 @@ the default step (N = 9), in f32 and bf16, with and without the ReLU, through
 the library's backward through ``F.batch_norm`` + ``F.relu`` (the recomputed
 ReLU mask's flips counted and bounded), their other variants, a
 batch-strided dy, two calls bitwise equal, the inputs they refuse, and the
-module on the card against the CPU at class ``conv``.
+module on the card against the CPU at class ``conv``; the 2x bilinear
+upsample's kernels (``ops/upsample_cuda.py``) at the decoders' four shapes
+(batch 9) and at odd and edge shapes: the forward bit for bit the
+``F.interpolate`` calls it replaces (two passes in bf16, one in f32), infs,
+NaNs, subnormals and signed zeros included; the backward bit for bit its
+plain version and within ``f32_reduce`` (bf16: half an ulp) of an f64
+``F.interpolate`` backward; two backwards bitwise equal; a captured call
+replaying the eager result; the inputs they refuse; and a step's launches of
+both (``STEP_LAUNCHES``).
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from wt_pse_tpu_torch.config import JOINT, default_hparams
 from wt_pse_tpu_torch.data import augment
@@ -658,12 +667,12 @@ def test_graphed_step_matches_the_same_step_eager(cuda, dtype):
     """One step from one state, graphed against the same step eager with the
     same capturable Adam: metrics within the scan-vs-loop bounds (in bf16 the
     two read through a teacher after its update at class bf16:
-    ``chip_smoke.POST_UPDATE``). The bilinear upsample's backward adds with
-    atomics on the card, so two eager runs need not agree bitwise; the
-    largest parameter differences are printed beside each other, with no
-    bound (as the JAX package's scan-vs-loop test compares no parameters).
-    A captured step counts 8 launches of each covariance kernel and 148 of
-    the BatchNorm backward (the forward is PyTorch's)."""
+    ``chip_smoke.POST_UPDATE``). The largest parameter differences are
+    printed beside each other, with no bound (as the JAX package's
+    scan-vs-loop test compares no parameters). A captured step counts 8
+    launches of each covariance kernel, 148 of the BatchNorm backward (the
+    forward is PyTorch's), 32 of the upsample's forward and 24 of its
+    backward (``STEP_LAUNCHES``)."""
     import chip_smoke as cs
 
     res = cs.graph_vs_eager_step(cuda, dict(default_hparams("WT_PSE"), compute_dtype=dtype),
@@ -671,15 +680,16 @@ def test_graphed_step_matches_the_same_step_eager(cuda, dtype):
     print(res)
     assert res["graph_vs_eager"]["err_of_bound"] <= 1.0, res
     key = "launches_bf16" if dtype == "bfloat16" else "launches"
-    assert res["launches_a_step"] == {f"covariance_forward.{key}": 8,
-                                      f"covariance_backward.{key}": 8,
-                                      f"batch_norm_backward.{key}": 148}, res
+    assert res["launches_a_step"] == {f"{k}.{key}": n for k, n in STEP_LAUNCHES.items()}, res
 
 
-# the hand-written kernels' launches in an f32 step of the default WT_PSE
-# configuration (the forward's BatchNorm is PyTorch's: no launch of the port's)
-F32_STEP_LAUNCHES = {"covariance_forward": 8, "covariance_backward": 8,
-                     "batch_norm_backward": 148}
+# the hand-written kernels' launches in a step of the default WT_PSE
+# configuration, in either dtype (the forward's BatchNorm is PyTorch's: no
+# launch of the port's). The upsample: 4 a U-Net forward, 8 U-Net forwards a
+# step (the teachers' 2 without grad), 6 backwards
+STEP_LAUNCHES = {"covariance_forward": 8, "covariance_backward": 8,
+                 "batch_norm_backward": 148, "upsample2x_forward": 32,
+                 "upsample2x_backward": 24}
 
 
 def test_capture_leaves_the_run_as_it_was_and_replays_count_their_launches(cuda, tmp_path):
@@ -709,12 +719,12 @@ def test_capture_leaves_the_run_as_it_was_and_replays_count_their_launches(cuda,
     assert all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
     assert len(before[0]) == len(after[0])
     assert torch.equal(before[1], after[1]) and before[2] == after[2]
-    warmup = {k: F32_STEP_LAUNCHES[k[0]] * WARMUP_STEPS if k[1] == "launches" else 0
+    warmup = {k: STEP_LAUNCHES[k[0]] * WARMUP_STEPS if k[1] == "launches" else 0
               for k in before[3]}
     assert {k: after[3][k] - n for k, n in before[3].items()} == warmup
     metrics = again.replay(2)
     torch.cuda.synchronize()
-    replays = {k: F32_STEP_LAUNCHES[k[0]] * 2 if k[1] == "launches" else 0 for k in before[3]}
+    replays = {k: STEP_LAUNCHES[k[0]] * 2 if k[1] == "launches" else 0 for k in before[3]}
     assert {k: n - after[3][k] for k, n in cuda_lib.launch_counts(COUNTED).items()} == replays
     assert state.step == before[2] + 2
     assert all(v.shape == (2,) and torch.isfinite(v).all() for v in metrics.values())
@@ -741,7 +751,7 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda, tmp_path):
         gs.capture()
     assert gs.graph is None and graph.state.step == step
     # the eager warm-up's launches stay counted, the failed capture's do not
-    warmup = {k: F32_STEP_LAUNCHES[k[0]] * WARMUP_STEPS if k[1] == "launches" else 0
+    warmup = {k: STEP_LAUNCHES[k[0]] * WARMUP_STEPS if k[1] == "launches" else 0
               for k in counts}
     assert {k: n - counts[k] for k, n in cuda_lib.launch_counts(COUNTED).items()} == warmup
 
@@ -828,18 +838,21 @@ def _assert_dp_graph_rank(res):
     """``torch_dp_worker.dp_graph_rank``'s record of one rank: the graph and
     the loop from one seed draw the same batches, their first steps agree at
     the scan-vs-loop bounds (rtol 1e-4, atol 1e-6), 8 launches of each kernel
-    a replayed step, the checkpoint resumes under the loop and, restored in
-    place, under the DP graph, whose ``nan_recovery`` rolls back bitwise
-    into the graph's tensors."""
+    a replayed step (and the upsample's: ``STEP_LAUNCHES``; sync BatchNorm
+    launches none of the port's), the checkpoint resumes under the loop and,
+    restored in place, under the DP graph, whose ``nan_recovery`` rolls back
+    bitwise into the graph's tensors."""
     assert res["drivers"] == ["graph", "eager"] and res["graphed"], res
     graph, loop = res["first_step"]
     assert set(graph) == set(loop)
     for k, v in loop.items():
         np.testing.assert_allclose(graph[k], v, rtol=1e-4, atol=1e-6, err_msg=k)
     assert res["same_batches"] == [True] * res["iter_per_epoch"], res
-    per_step = {"covariance_forward.launches": 8, "covariance_backward.launches": 8}
+    per_step = {f"{k}.launches": n for k, n in STEP_LAUNCHES.items()
+                if k != "batch_norm_backward"}
     assert res["launches_a_step"] == per_step, res
-    assert res["launches_an_epoch"] == {k: 8 * res["iter_per_epoch"] for k in per_step}, res
+    assert res["launches_an_epoch"] == {k: n * res["iter_per_epoch"]
+                                        for k, n in per_step.items()}, res
     assert res["checkpoint"] and res["resumed"]["driver"] == "eager", res
     assert res["resumed"]["start"] == res["step"] == 6 * res["iter_per_epoch"], res
     assert res["resumed"]["step"] == res["step"] + res["iter_per_epoch"], res
@@ -1042,3 +1055,150 @@ def test_batchnorm_module_on_the_card_matches_the_cpu(cuda):
     for name, a, b in zip(names, out[1], out[0]):
         bound = 1e-5 + 5e-4 * float(b.abs().max())
         assert float((a - b).abs().max()) <= bound, name
+
+
+# -- the 2x bilinear upsample (ops/upsample_cuda.py) ----------------------------
+
+# (N, C, H, W) of the decoders' four upsamples in the default step (batch 9),
+# then odd and edge shapes: sides 1 to 3, a W that is not a multiple of 4 (the
+# one-value variant), a tall and a wide map
+UPSAMPLE_SHAPES = [(9, 256, 16, 16), (9, 128, 32, 32), (9, 64, 64, 64), (9, 32, 128, 128),
+                   (2, 3, 1, 1), (3, 5, 3, 7), (2, 4, 2, 2), (1, 3, 17, 5), (2, 8, 16, 6),
+                   (2, 2, 40, 4), (1, 2, 4, 40)]
+up_ids = ["x".join(map(str, s)) for s in UPSAMPLE_SHAPES]
+
+
+def upsample_input(cuda, shape, dtype, seed=0, offset=0, special=True):
+    """Normal draws times 3 (a view ``offset`` values into its storage) with,
+    where ``special``, every 97th value an inf, -inf, NaN, subnormal, -0 or
+    0 in turns."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, device=cuda, generator=gen) * 3
+    if special:
+        vals = torch.tensor([float("inf"), -float("inf"), float("nan"), 1e-39, -0.0, 0.0],
+                            device=cuda)
+        idx = torch.arange(offset, n + offset, 97, device=cuda)
+        x[idx] = vals[torch.arange(len(idx), device=cuda) % len(vals)]
+    return x.to(dtype)[offset:].view(shape)
+
+
+def assert_same_bits(got, want):
+    """Bit for bit, a NaN taken as equal to any NaN (the payload aside)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    diff = (got.view(ints) != want.view(ints)) & ~nan
+    assert int(diff.sum()) == 0, (int(diff.sum()), got[diff][:8], want[diff][:8])
+
+
+def aten_upsample(x):
+    """What the kernel replaces: the two-pass resize in bf16, one pass in
+    f32."""
+    if x.dtype == torch.bfloat16:
+        x = F.interpolate(x, scale_factor=(2, 1), mode="bilinear", align_corners=False)
+        return F.interpolate(x, scale_factor=(1, 2), mode="bilinear", align_corners=False)
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES, ids=up_ids)
+def test_upsample_forward_is_atens_bitwise(cuda, shape, dtype):
+    """The forward kernel against the ``F.interpolate`` calls it replaces, bit
+    for bit, with infs, NaNs, subnormals and signed zeros among the inputs;
+    also from a base 2 values past a 16-byte boundary (the one-value
+    variant). One launch counted."""
+    from wt_pse_tpu_torch.ops import upsample_cuda as up
+
+    for offset in (0, 2):
+        x = upsample_input(cuda, shape, dtype, offset=offset)
+        key = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+        before = getattr(up.upsample2x_forward, key)
+        got = up.upsample2x_forward(x)
+        assert getattr(up.upsample2x_forward, key) - before == 1
+        torch.cuda.synchronize()
+        assert_same_bits(got, aten_upsample(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES, ids=up_ids)
+def test_upsample_backward_matches_an_f64_interpolate_backward(cuda, shape, dtype):
+    """The backward kernel is its plain version on the card, bit for bit,
+    and within ``f32_reduce`` of ``F.interpolate``'s f64 backward (in bf16,
+    half a bf16 ulp with the ``f32_reduce`` allowance: one rounding of an
+    f32 sum); also from a base 2 values past a 16-byte boundary."""
+    from wt_pse_tpu_torch.ops import upsample_cuda as up
+
+    n, c, h, w = shape
+    for offset in (0, 2):
+        dy = upsample_input(cuda, (n, c, 2 * h, 2 * w), dtype, seed=1, offset=offset,
+                            special=False)
+        got = up.upsample2x_backward(dy)
+        x64 = torch.zeros(shape, dtype=torch.float64, device=cuda, requires_grad=True)
+        F.interpolate(x64, scale_factor=2, mode="bilinear", align_corners=False).backward(
+            dy.double())
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == shape
+        assert torch.equal(got, up.upsample2x_backward_plain(dy))
+        if dtype == torch.bfloat16:
+            assert bf16_ulp_error(got, x64.grad) <= 0.5
+        else:
+            assert_scaled_close(got.double(), x64.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_two_upsample_backward_calls_are_bitwise_equal(cuda, dtype):
+    """No atomics: two backward calls at the largest decoder shape give the
+    same bits (ATen's bf16 backward adds with atomics in bf16, in an order
+    that changes from call to call)."""
+    from wt_pse_tpu_torch.ops import upsample_cuda as up
+
+    dy = upsample_input(cuda, (9, 32, 256, 256), dtype, seed=2, special=False)
+    a, b = up.upsample2x_backward(dy), up.upsample2x_backward(dy)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_a_captured_upsample_replays_the_eager_result(cuda, dtype):
+    """``Upsample2x`` forward and backward captured in a CUDA graph (the
+    library loaded before, as the warm-up steps load it): a replay on new
+    inputs gives the eager call's output and gradient, bit for bit."""
+    from wt_pse_tpu_torch.models.layers import upsample2x
+
+    shape = (9, 64, 64, 64)
+    x = upsample_input(cuda, shape, dtype, special=False).requires_grad_()
+    dy = upsample_input(cuda, (9, 64, 128, 128), dtype, seed=1, special=False)
+    warm = x.detach().clone().requires_grad_()  # a leaf of its own: x's grad node is the graph's
+    upsample2x(warm).backward(dy)  # loads the library and warms the allocator
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_static = upsample2x(x)
+        y_static.backward(dy)
+    with torch.no_grad():
+        x.copy_(upsample_input(cuda, shape, dtype, seed=7, special=False))
+        dy.copy_(upsample_input(cuda, dy.shape, dtype, seed=8, special=False))
+    x.grad.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    xe = x.detach().clone().requires_grad_()
+    ye = upsample2x(xe)
+    ye.backward(dy)
+    torch.cuda.synchronize()
+    assert torch.equal(y_static, ye) and torch.equal(x.grad, xe.grad)
+
+
+@pytest.mark.parametrize("bad", ["float64", "float16", "channels_last", "3d", "empty"])
+def test_upsample_wrappers_raise_on_unsupported_input(cuda, bad):
+    from wt_pse_tpu_torch.ops import upsample_cuda as up
+
+    x = torch.randn(2, 4, 8, 8, device=cuda)
+    x = {"float64": x.double(), "float16": x.half(),
+         "channels_last": x.contiguous(memory_format=torch.channels_last),
+         "3d": x.reshape(2, 4, 64), "empty": x[:0]}[bad]
+    with pytest.raises((TypeError, ValueError)):
+        up.upsample2x_forward(x)
+    with pytest.raises((TypeError, ValueError)):
+        up.upsample2x_backward(x)

@@ -7,12 +7,12 @@ DoubleConvWT children ``double_conv.{0,2}``, and the 1x1 heads are
 ``nn.Sequential`` with convs at indices ``0, 2, 4``.
 
 BatchNorm is ``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1, unbiased variance in
-the running estimate) and the 2x upsample is ``F.interpolate(bilinear,
-align_corners=False)`` — the reference's own ops, which the JAX package
-re-implements for parity. Under data parallelism the BatchNorm layers hold
-the mesh and synchronise their training statistics across its ranks
-(:class:`BatchNorm2d`, JAX's ``BatchNorm(axis_name=...)``); without one they
-are ``nn.BatchNorm2d`` itself.
+the running estimate) and the 2x upsample computes what
+``F.interpolate(bilinear, align_corners=False)`` does — the reference's own
+ops, which the JAX package re-implements for parity. Under data parallelism
+the BatchNorm layers hold the mesh and synchronise their training statistics
+across its ranks (:class:`BatchNorm2d`, JAX's ``BatchNorm(axis_name=...)``);
+without one they are ``nn.BatchNorm2d`` itself.
 
 Parameters are initialised the way the JAX package's Flax modules initialise
 them (:func:`init_like_flax_`), drawn from an explicit ``torch.Generator``.
@@ -36,7 +36,11 @@ JAX rounds twice. Per op:
 - 2x bilinear upsample (:func:`upsample2x`): bf16 in, one axis at a time,
   f32 sums rounded to bf16 after each axis (``layers.py:211-226``: bf16
   operands, f32 accumulation, a bf16 round between the two passes); an f64
-  input (``net.double()``) is resized in f32, as JAX's is (``:227-231``);
+  input (``net.double()``) is resized in f32, as JAX's is (``:227-231``).
+  On the card it is ``ops/upsample_cuda.py::Upsample2x``, one hand-written
+  kernel each way (both passes in registers, the forward bit for bit the
+  two ``F.interpolate`` calls; the backward a gather summed in f32 and
+  rounded once); on the CPU those ``F.interpolate`` calls themselves;
 - ReLU, max-pool, concat (the skip cast to the decoder's type), sigmoid and
   the attention fusion run in the compute dtype; ``ConvStack1x1`` and
   ``AttentionLayer`` are convs in it (``layers.py:375-404``).
@@ -73,6 +77,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wt_pse_tpu_torch.ops.batchnorm_cuda import BatchNormReLU
+from wt_pse_tpu_torch.ops.upsample_cuda import Upsample2x, upsample2x_forward_plain
 from wt_pse_tpu_torch.parallel.collectives import all_reduce_sum, halo_rows
 
 # the mesh whose ranks hold the slabs of an image's rows inside row_shard, or
@@ -193,14 +198,17 @@ def conv1x1(cin: int, cout: int, dtype: torch.dtype | None = None) -> Conv2d:
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=False)``.
-    A bf16 ``x`` is resized one axis at a time, each pass summing in f32 and
-    rounding to bf16, as the JAX package's bf16 path does (its 0.25 / 0.75
-    weights are exact in bf16). An f64 ``x`` is resized in f32 and returned
-    f64, as the JAX package's ``resize_bilinear`` computes in f32 whatever
-    its input (``layers.py:227-231``), so f64 nets round there as JAX's do.
-    Inside :func:`row_shard`, a slab is resized with a neighbour row on each
-    side and the two output rows each side that they make are dropped."""
+    """``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=False)``
+    by :class:`~wt_pse_tpu_torch.ops.upsample_cuda.Upsample2x` on the card
+    (its kernels) and ``F.interpolate`` with its autograd on the CPU, which
+    the forward kernel equals bit for bit. A bf16 ``x`` is resized one
+    axis at a time, each pass summing in f32 and rounding to bf16, as the JAX
+    package's bf16 path does (its 0.25 / 0.75 weights are exact in bf16). An
+    f64 ``x`` is resized in f32 and returned f64, as the JAX package's
+    ``resize_bilinear`` computes in f32 whatever its input
+    (``layers.py:227-231``), so f64 nets round there as JAX's do. Inside
+    :func:`row_shard`, a slab is resized with a neighbour row on each side
+    and the two output rows each side that they make are dropped."""
     mesh = _ROW_MESH.get()
     if mesh is not None:
         return _upsample2x(halo_rows(x, mesh, "replicate"))[:, :, 2:-2]
@@ -208,13 +216,9 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
-    if x.dtype == torch.bfloat16:
-        x = F.interpolate(x, scale_factor=(2, 1), mode="bilinear", align_corners=False)
-        return F.interpolate(x, scale_factor=(1, 2), mode="bilinear", align_corners=False)
     if x.dtype == torch.float64:
-        return F.interpolate(x.float(), scale_factor=2, mode="bilinear",
-                             align_corners=False).to(x.dtype)
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+        return _upsample2x(x.float()).to(x.dtype)
+    return Upsample2x.apply(x) if x.is_cuda else upsample2x_forward_plain(x)
 
 
 @torch.no_grad()

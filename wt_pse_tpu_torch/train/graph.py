@@ -26,9 +26,10 @@ What the graph holds, and how the rest of the port keeps it valid:
 
 Host state that only the capture sees is kept by the replay instead: the
 state's ``step`` count, and the hand-written kernels' launch counters (the
-covariance's, ``ops/covariance_cuda.py``, and BatchNorm's,
-``ops/batchnorm_cuda.py``), from which the capture's launches are taken back
-and to which each replay adds them (:attr:`GraphedStep.launches_per_step`).
+covariance's, ``ops/covariance_cuda.py``, BatchNorm's,
+``ops/batchnorm_cuda.py``, and the upsample's, ``ops/upsample_cuda.py``),
+from which the capture's launches are taken back and to which each replay
+adds them (:attr:`GraphedStep.launches_per_step`).
 
 Data parallelism (``parallel/dp.py::make_dp_fused``, the counterpart of
 JAX's ``epoch`` over ``make_dp_fused``): the graph holds the step's NCCL
@@ -76,13 +77,15 @@ import torch
 
 from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
 from wt_pse_tpu_torch.ops import covariance_cuda as cc
+from wt_pse_tpu_torch.ops import upsample_cuda as up
 from wt_pse_tpu_torch.ops.cuda_lib import add_launches, launch_counts
 from wt_pse_tpu_torch.train.state import WTPSETrainState, init_adam_state
 from wt_pse_tpu_torch.utils.trace import DeviceMarks, Tracer
 
 WARMUP_STEPS = 3
 # the hand-written kernels' wrappers, each counting its launches by element type
-COUNTED = (cc.covariance_forward, cc.covariance_backward, bn.batch_norm_backward)
+COUNTED = (cc.covariance_forward, cc.covariance_backward, bn.batch_norm_backward,
+           up.upsample2x_forward, up.upsample2x_backward)
 
 
 class GraphedStep:
