@@ -24,7 +24,8 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
 4. the main path: full-width training steps (256x256, batch 9 = 3 domains x 3,
    base width 16, f32, TF32 off) from seeded weights on a synthetic batch, with
    the launch counts set to 0 just before and read just after (8 of each
-   covariance kernel, 148 BatchNorm backwards, 32 upsample forwards and 24
+   covariance kernel, 198 BatchNorm forwards and 148 backwards, 32 upsample
+   forwards and 24
    upsample backwards a step); two more steady
    steps traced with ``torch.profiler`` (device time by kernel, the card's busy
    share of the step: the breakdown in PERF.md; the hand-written kernels'
@@ -44,7 +45,8 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    graph (the sample + step captured once as a CUDA graph and replayed once a
    step; its capture time and memory pool), trains 5 epochs of 4 steps, with
    the launch counts set to 0 just before and read just after (8 of each
-   covariance kernel and 148 BatchNorm backwards a replayed step),
+   covariance kernel, 198 BatchNorm forwards and 148 backwards a replayed
+   step),
    and validates after epochs 3 and 4 on 8 images whose labels are at two
    native resolutions (512x512 and 640x640). It checks finite losses, the
    log rows, the 7 finite validation metrics, best.json and a checkpoint; a
@@ -84,8 +86,8 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
 8. the bf16 main path (``compute_dtype='bfloat16'``): 8 full-width bf16
    steps from seeded weights on one fixed batch, with the launch counts set
    to 0 just before and read just after (8 of each bf16 covariance kernel,
-   148 bf16 BatchNorm backwards, 32 bf16 upsample forwards and 24 backwards a
-   step, no f32 launch; the Trainer's run below likewise but the upsample's,
+   148 bf16 BatchNorm backwards and no forward of the port's, 32 bf16
+   upsample forwards and 24 backwards a step, no f32 launch; the Trainer's run below likewise but the upsample's,
    which its validations launch too), finite losses and a loss that falls over the 8 steps, f32
    parameters and BatchNorm statistics after them, the steady bf16 step time
    beside phase 4's f32 step of the same call, a ``torch.profiler`` breakdown
@@ -204,25 +206,32 @@ Phases, in order; any failure exits non-zero and no phase falls back to the CPU:
    against one card and phase 11 (a)'s gloo ranks. On one card (b) prints
    that it did not run.
 
-15. the BatchNorm + ReLU backward kernels (``ops/batchnorm_cuda.py``) at
-   every training-mode BatchNorm's shape of the default step (N = 9; 9
-   (C, H, W)), in f32 and bf16, with and without the ReLU, through
-   ``BatchNormReLU`` (the library's forward: cuDNN in f32, ATen in bf16;
-   then the kernels), held by ``check_batchnorm``: dx, dweight and dbias
-   within their tolerance (dx at f32_reduce, or 1 bf16 ulp + f32_reduce;
-   dweight and dbias at f32_reduce of the sum of their terms' magnitudes) of
-   an f64 truth with the kernels' ReLU mask and of their plain version;
-   against the library's backward through the same forward + ``F.relu``
-   (autograd) within that tolerance plus the library's own distance from
-   its f64 truth; the recomputed mask's flips against the forward's counted,
-   at most 1e-5 of the elements and each within 8 f32 ulps of 0; then, at
-   (9, 16, 256, 256), (9, 32, 128, 128) and (9, 256, 16, 16) with the ReLU,
-   the kernel pair timed by CUDA events after a 256 MB write (dirty L2, as
-   phase 5) and about 1 ms of sleep on the card (so that the host's enqueue is
-   not timed), in turns with the plain version and the library's backward
-   (autograd through the same forward), a yardstick the port never calls;
-   beside each, the two-pass bound (x and dy read twice, dx written) and the
-   strict one (each byte once) at 3.35 TB/s.
+15. the BatchNorm + ReLU kernels (``ops/batchnorm_cuda.py``) at every
+   training-mode BatchNorm's shape of the default step (N = 9; 9 (C, H, W)),
+   in f32 and bf16, with and without the ReLU, through ``BatchNormReLU`` (the
+   forward kernels in f32, the library's forward, ATen's, in bf16; then the
+   backward kernels), held by ``check_batchnorm``: in f32 the forward's y
+   within 1 f32 ulp of its plain version, whose saved and running
+   statistics and ``num_batches_tracked`` it equals bit for bit, and y, the
+   saved mean and invstd and the running statistics within f32_reduce of an
+   f64 truth; in bf16 the forward bit for bit the library's; dx, dweight and
+   dbias within their tolerance (dx at f32_reduce, or 1 bf16 ulp +
+   f32_reduce; dweight and dbias at f32_reduce of the sum of their terms'
+   magnitudes) of an f64 truth with the kernels' ReLU mask and of their plain
+   version; against the library's backward through its own forward +
+   ``F.relu`` (autograd) within that tolerance plus the library's own
+   distance from its f64 truth; the recomputed mask's flips against the
+   path's forward counted: none in f32, in bf16 at most 1e-5 of the elements
+   and each within 8 f32 ulps of 0; then, at (9, 16, 256, 256), (9, 32, 128,
+   128) and (9, 256, 16, 16) with the ReLU, each kernel pair timed by CUDA
+   events after a 256 MB write (dirty L2, as phase 5) and about 1 ms of
+   sleep on the card (so that the host's enqueue is not timed), in turns with
+   its plain version and the library's call (the backward's: autograd
+   through the library's forward; the f32 forward's: cuDNN's forward and the
+   ReLU in place), a yardstick the port never calls; beside each, the
+   pass bound (the forward's 3: x read twice, y written; the backward's 5: x
+   and dy read twice, dx written) and the strict one (each byte once) at
+   3.35 TB/s.
 16. the 2x bilinear upsample's kernels (``ops/upsample_cuda.py``) at the
    decoders' four shapes (batch 9; ``UP_SHAPES``), in f32 and bf16: the
    forward held bit for bit to the ``F.interpolate`` calls it replaces (two
@@ -238,8 +247,8 @@ ones they read); with no arguments it runs them all.
 
 The card's name and power limit follow the build line. With phase 15 a JSON
 ``batchnorm_kernels`` record of its timed rows comes before the ``kernels``
-line (``launches``: the BatchNorm backwards of the row's type counted in the
-trainer runs of phases 6 and 8, ``steps`` their steps); with phase 16 an
+line (``launches``: the BatchNorm kernels of the row's name and type counted
+in the trainer runs of phases 6 and 8, ``steps`` their steps); with phase 16 an
 ``upsample_kernels`` record of its timed rows before that.
 The line before the last is a JSON ``kernels`` record of four rows, the f32 and the bf16 variant
 of each kernel (``launches`` counted in the trainer runs of phases 6 and 8);
@@ -415,6 +424,7 @@ def check_kernels(cc, dev) -> dict:
 
 
 BN_LAUNCHES_A_STEP = 148  # training-mode BatchNorm backwards in a default WT_PSE step
+BN_FORWARDS_A_STEP = 198  # ... and forwards (the teachers' no-grad ones too): f32 alone
 
 
 UP_FORWARDS_A_STEP = 32   # upsample forwards in a default WT_PSE step (8 U-Nets x 4)
@@ -423,11 +433,11 @@ UP_BACKWARDS_A_STEP = 24  # ... and backwards (the 2 teachers' U-Nets run withou
 
 def zero_counts(cc) -> None:
     """Sets every kernel's launch count to 0."""
-    from wt_pse_tpu_torch.ops.batchnorm_cuda import batch_norm_backward
+    from wt_pse_tpu_torch.ops.batchnorm_cuda import batch_norm_backward, batch_norm_forward
     from wt_pse_tpu_torch.ops.upsample_cuda import upsample2x_backward, upsample2x_forward
 
-    for fn in (cc.covariance_forward, cc.covariance_backward, batch_norm_backward,
-               upsample2x_forward, upsample2x_backward):
+    for fn in (cc.covariance_forward, cc.covariance_backward, batch_norm_forward,
+               batch_norm_backward, upsample2x_forward, upsample2x_backward):
         fn.launches = fn.launches_bf16 = 0
 
 
@@ -448,16 +458,23 @@ def expect_up_counts(steps: int, bf16: bool, what: str) -> None:
 
 
 def read_bn_counts() -> dict:
-    """The BatchNorm backward's launch counts by row name."""
-    from wt_pse_tpu_torch.ops.batchnorm_cuda import batch_norm_backward as fn
+    """The BatchNorm kernels' launch counts by row name."""
+    from wt_pse_tpu_torch.ops.batchnorm_cuda import batch_norm_backward, batch_norm_forward
 
-    return {"bn_backward": fn.launches, "bn_backward_bf16": fn.launches_bf16}
+    return {"bn_forward": batch_norm_forward.launches,
+            "bn_forward_bf16": batch_norm_forward.launches_bf16,
+            "bn_backward": batch_norm_backward.launches,
+            "bn_backward_bf16": batch_norm_backward.launches_bf16}
 
 
-def expect_bn_counts(got: dict, f32: int, bf16: int, what: str) -> None:
-    want = {"bn_backward": f32, "bn_backward_bf16": bf16}
+def expect_bn_counts(got: dict, steps: int, bf16: bool, what: str) -> None:
+    """``steps`` default steps' BatchNorm launches of the row's type: the
+    backwards, and the forwards in f32 (bf16 takes the library's)."""
+    back = BN_LAUNCHES_A_STEP * steps
+    want = {"bn_forward": 0 if bf16 else BN_FORWARDS_A_STEP * steps, "bn_forward_bf16": 0,
+            "bn_backward": 0 if bf16 else back, "bn_backward_bf16": back if bf16 else 0}
     if got != want:
-        raise SystemExit(f"{what}: expected BatchNorm backward launches {want}, got {got}")
+        raise SystemExit(f"{what}: expected BatchNorm launches {want}, got {got}")
 
 
 def read_counts(cc) -> dict:
@@ -664,11 +681,11 @@ def main_path(cc, dev) -> float:
         ", ".join(f"{t * 1e3:.2f} ms" for t in times) +
         f"; steady median {steady_ms:.2f} ms/step")
     log("last step metrics: " + json.dumps({k: float(v) for k, v in sorted(metrics.items())}))
-    log(f"covariance launches over the {STEPS} steps: {launches}; BatchNorm backward "
+    log(f"covariance launches over the {STEPS} steps: {launches}; BatchNorm "
         f"launches {bn_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     expect_counts(launches, 8 * STEPS, 0, "phase 4")
-    expect_bn_counts(bn_launches, BN_LAUNCHES_A_STEP * STEPS, 0, "phase 4")
+    expect_bn_counts(bn_launches, STEPS, False, "phase 4")
     expect_up_counts(STEPS, False, "phase 4")
     profile_eager_steps(step, state, batch, gen, steady_ms)
 
@@ -783,11 +800,11 @@ def trainer_path(cc, dev, tmp: str) -> dict:
         f"{steady:.3f} s = {trainer.iter_per_epoch / steady:.3f} steps/s; the host "
         f"enqueued the steps in " + ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) +
         f" s of them; covariance "
-        f"launches {launches}; BatchNorm backward launches {bn_launches} "
+        f"launches {launches}; BatchNorm launches {bn_launches} "
         f"({trainer._graph.launches_per_step} a replayed step); peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     expect_counts(launches, 8 * steps, 0, "phase 6")
-    expect_bn_counts(bn_launches, BN_LAUNCHES_A_STEP * steps, 0, "phase 6")
+    expect_bn_counts(bn_launches, steps, False, "phase 6")
     for i, v in enumerate(trainer.validation_seconds):
         log(f"validation {i} (8 images, native 512x512 x5 and 640x640 x3): "
             f"{sum(v.values()):.3f} s = predict on the card {v['predict']:.3f} s + "
@@ -1225,9 +1242,9 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
         f"ms/step against the f32 step's {f32_step_ms:.2f} ms (phase 4, this call): "
         f"{bf16_ms / f32_step_ms:.3f}x; peak device memory {peak:.2f} GiB (f32: phase 4)")
     log(f"phase 8 loss_seg over the {STEPS_BF16} steps: " + ", ".join(f"{v:.5f}" for v in losses))
-    log(f"phase 8 covariance launches: {launches}; BatchNorm backward launches {bn_launches}")
+    log(f"phase 8 covariance launches: {launches}; BatchNorm launches {bn_launches}")
     expect_counts(launches, 0, 8 * STEPS_BF16, "phase 8 steps")
-    expect_bn_counts(bn_launches, 0, BN_LAUNCHES_A_STEP * STEPS_BF16, "phase 8 steps")
+    expect_bn_counts(bn_launches, STEPS_BF16, True, "phase 8 steps")
     expect_up_counts(STEPS_BF16, True, "phase 8 steps")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"phase 8: the bf16 loss did not fall over {STEPS_BF16} steps: {losses}")
@@ -1261,7 +1278,7 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
     t_launches, t_bn = read_counts(cc), read_bn_counts()
     steps = 3 * trainer.iter_per_epoch
     expect_counts(t_launches, 0, 8 * steps, "phase 8 trainer")
-    expect_bn_counts(t_bn, 0, BN_LAUNCHES_A_STEP * steps, "phase 8 trainer")
+    expect_bn_counts(t_bn, steps, True, "phase 8 trainer")
     val, t_val = timed(trainer.validate)
     with open(os.path.join(run, "run_meta.json")) as f:
         meta = json.load(f)
@@ -1275,7 +1292,7 @@ def bf16_path(cc, dev, tmp: str, f32_step_ms: float, p6: dict) -> dict:
         f" s; phase 6's f32 epochs in this call: " +
         ", ".join(f"{t:.3f}" for t in p6["trainer"].epoch_seconds) + " s); host enqueue " +
         ", ".join(f"{t:.3f}" for t in trainer.enqueue_seconds) + f" s; launches {t_launches}, "
-        f"BatchNorm backward {t_bn} ({getattr(trainer._graph, 'launches_per_step', None)} a "
+        f"BatchNorm {t_bn} ({getattr(trainer._graph, 'launches_per_step', None)} a "
         f"replayed step); "
         f"validation {t_val:.3f} s: {json.dumps(val)}; run_meta compute_dtype "
         f"{meta['compute_dtype']!r}")
@@ -2815,7 +2832,7 @@ BN_TIMED_SHAPES = [(9, 16, 256, 256), (9, 32, 128, 128), (9, 256, 16, 16)]
 
 
 def bn_forward(bn, x, w, b, relu: bool, grad: bool = False):
-    """The path's forward (``forward_library``'s dispatch and ReLU), under
+    """The library's forward (``forward_library``'s dispatch and ReLU), under
     autograd with ``grad`` (then x, w and b are leaves of their own): (y,
     mean, invstd, the leaves)."""
     c = x.shape[1]
@@ -2826,6 +2843,43 @@ def bn_forward(bn, x, w, b, relu: bool, grad: bool = False):
             0.1, 1e-5, torch.backends.cudnn.enabled)
         y = torch.relu(y) if relu else y
     return y, mean.detach(), invstd.detach(), leaves
+
+
+def fresh_bn_stats(c: int, dev) -> list:
+    """Running statistics that are not the defaults, and a
+    ``num_batches_tracked`` of 5."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    return [torch.randn(c, device=dev, generator=g), torch.rand(c, device=dev, generator=g) + 0.5,
+            torch.full((), 5, dtype=torch.long, device=dev)]
+
+
+def f32_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance of two f32 tensors in units in the last place."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7fffffff), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def bn_forward_errors(x, w, b, y, mean, invstd, stats, start, relu: bool) -> list[float]:
+    """y, the saved mean and invstd and the running mean and variance (from
+    ``start``) against an f64 truth, each as a share of f32_reduce: y of its
+    largest magnitude, the means of their channel's |mean| + std."""
+    xd = x.double()
+    var, mu = torch.var_mean(xd, (0, 2, 3), correction=0)
+    std = var.sqrt()
+    yt = (xd - mu[:, None, None]) * torch.rsqrt(var + 1e-5)[:, None, None] \
+        * w.double()[:, None, None] + b.double()[:, None, None]
+    yt = torch.relu(yt) if relu else yt
+    n = x.numel() // x.shape[1]
+    rm = 0.9 * start[0].double() + 0.1 * mu
+    rv = 0.9 * start[1].double() + 0.1 * var * n / (n - 1)
+    return [float(e) / F32_REDUCE_RTOL for e in (
+        (y.double() - yt).abs().max() / yt.abs().max(),
+        ((mean.double() - mu).abs() / (mu.abs() + std)).max(),
+        (invstd.double() * (var + 1e-5).sqrt() - 1).abs().max(),
+        ((stats[0].double() - rm).abs() / (rm.abs() + 0.1 * std)).max(),
+        ((stats[1].double() - rv) / rv).abs().max())]
 
 
 def bn_errors(got, want, magnitude) -> list[float]:
@@ -2848,81 +2902,112 @@ BN_FLIP_ULPS = 8.0        # ... only within this many f32 ulps of the pre-activa
 
 
 def check_batchnorm(bn, x, dy, w, b, relu: bool) -> dict:
-    """The path (``BatchNormReLU``: the library's forward, then the kernels)
-    against the library's forward and backward under autograd, from one x.
-    With the ReLU the kernels recompute its mask (``relu_mask``); ``flips``
-    counts the elements where it is not the forward's (y > 0), and
-    ``flip_ulps`` is the largest pre-activation among them in f32 ulps of
-    its terms: a flip is allowed only where the forward's rounding decides
-    the sign. Shares of the tolerance (``bn_errors``) of dx, dweight and
-    dbias: the kernels against an f64 truth with their own mask and against
-    their plain version (each at most 1); against the library, dx where the
-    masks agree, at most 1 plus the library's own distance from an f64 truth
-    with its mask plus the two truths' distance (the flips' effect on the
-    sums). ``ok`` holds all of it."""
+    """The path (``BatchNormReLU``: the forward kernels for an f32 x, the
+    library's forward for bf16, then the backward kernels) against the
+    library's forward and backward under autograd, from one x, and the
+    forward against its plain version and an f64 truth. In f32:
+    ``forward_plain_ulps``, y's distance to the plain version (at most 1),
+    ``forward_plain_stats``, whether the saved mean and invstd, the running
+    statistics and ``num_batches_tracked`` equal the plain version's bit for
+    bit, and ``forward_truth``, shares of f32_reduce of y, the saved mean and
+    invstd and the running mean and variance against an f64 truth
+    (``bn_forward_errors``, each at most 1); in bf16 the forward must be the
+    library's, bit for bit. With the ReLU the backward kernels recompute its
+    mask (``relu_mask``); ``flips`` counts the elements where it is not the
+    path's forward's (y > 0): none in f32, where the two use one
+    expression; in bf16 ``flip_ulps`` is the largest pre-activation among
+    them in f32 ulps of its terms, a flip allowed only where the forward's
+    rounding decides the sign. Shares of the tolerance (``bn_errors``) of dx,
+    dweight and dbias: the kernels against an f64 truth with their own mask
+    and statistics and against their plain version (each at most 1); against
+    the library, dx where the masks agree, at most 1 plus the library's own
+    distance from an f64 truth with its mask plus the two truths' distance
+    (the flips' and the two forwards' statistics' effect on the sums). ``ok``
+    holds all of it."""
     c = x.shape[1]
+    f32 = x.dtype == torch.float32
     y, mean, invstd, leaves = bn_forward(bn, x, w, b, relu, grad=True)
     lib = torch.autograd.grad(y, leaves, dy)
+    start = fresh_bn_stats(c, x.device)
+    stats = [t.clone() for t in start]
     xk, wk, bk = (t.detach().requires_grad_() for t in (x, w, b))
-    yk = bn.BatchNormReLU.apply(xk, wk, bk, torch.zeros(c, device=x.device),
-                                torch.ones(c, device=x.device),
-                                torch.zeros((), dtype=torch.long, device=x.device), 0.1, 1e-5,
-                                relu)
+    yk = bn.BatchNormReLU.apply(xk, wk, bk, *stats, 0.1, 1e-5, relu)
+    _, mean_k, invstd_k, _, _ = yk.grad_fn.saved_tensors
     got = torch.autograd.grad(yk, (xk, wk, bk), dy)
-    if not torch.equal(yk, y):
-        raise SystemExit("phase 15: BatchNormReLU's forward is not the library's")
+    yk = yk.detach()
+    out = {}
+    if f32:
+        plain_stats = [t.clone() for t in start]
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        yp, mean_p, invstd_p = bn.batch_norm_forward_plain(x, w, b, *plain_stats, 0.1, 1e-5,
+                                                           relu, sms)
+        out["forward_plain_ulps"] = f32_ulps(yk, yp)
+        out["forward_plain_stats"] = all(torch.equal(a, p) for a, p in zip(
+            [mean_k, invstd_k, *stats], [mean_p, invstd_p, *plain_stats]))
+        out["forward_truth"] = bn_forward_errors(x, w, b, yk, mean_k, invstd_k, stats, start,
+                                                 relu)
+        out["y_max_abs_vs_library"] = float((yk - y.detach()).abs().max())
+    elif not torch.equal(yk, y):
+        raise SystemExit("phase 15: BatchNormReLU's bf16 forward is not the library's")
     keep = torch.ones_like(x, dtype=torch.bool)
     mask_k = mask_lib = keep
     flips, flip_ulps = 0, 0.0
     if relu:
-        mask_k, mask_lib = bn.relu_mask(x, mean, invstd, w, b), ~(y.detach() <= 0)
-        keep = mask_k == mask_lib
-        flips = int((~keep).sum())
+        mask_k = bn.relu_mask(x, mean_k, invstd_k, w, b)
+        mask_lib = ~(y.detach() <= 0)
+        own = mask_k != (yk > 0)
+        flips = int(own.sum())
         if flips:
-            xm = (x.float() - mean[:, None, None]).double()
-            terms = (xm * (invstd * w).double()[:, None, None]).abs() + b.double().abs()[
-                :, None, None]
-            pre = xm * (invstd * w).double()[:, None, None] + b.double()[:, None, None]
-            flip_ulps = float((pre.abs() / terms)[~keep].max()) / 2.0 ** -24
-    plain = bn.batch_norm_backward_plain(x, dy, mean, invstd, w, b, relu)
+            xm = (x.float() - mean_k[:, None, None]).double()
+            ws = (invstd_k * w).double()[:, None, None]
+            terms = (xm * ws).abs() + b.double().abs()[:, None, None]
+            pre = xm * ws + b.double()[:, None, None]
+            flip_ulps = float((pre.abs() / terms)[own].max()) / 2.0 ** -24
+        keep = mask_k == mask_lib
+        out["library_flips"] = int((~keep).sum())
+    plain = bn.batch_norm_backward_plain(x, dy, mean_k, invstd_k, w, b, relu)
 
-    def truth(mask):
+    def truth(mask, m, inv):
         return bn.batch_norm_backward_plain(x.double(), torch.where(mask, dy, 0).double(),
-                                            mean.double(), invstd.double(), w.double(),
+                                            m.double(), inv.double(), w.double(),
                                             b.double(), False)
 
-    truth_k, truth_lib = truth(mask_k), truth(mask_lib)
+    truth_k, truth_lib = truth(mask_k, mean_k, invstd_k), truth(mask_lib, mean, invstd)
     g = torch.where(mask_k, dy, 0).double()
-    xm = x.double() - mean.double()[:, None, None]
-    mag = ((g * xm).abs().sum((0, 2, 3)) * invstd.double(), g.abs().sum((0, 2, 3)))
+    xm = x.double() - mean_k.double()[:, None, None]
+    mag = ((g * xm).abs().sum((0, 2, 3)) * invstd_k.double(), g.abs().sum((0, 2, 3)))
 
     def kept(t):
         return (torch.where(keep, t[0], 0), t[1], t[2])
 
-    out = {"truth": bn_errors(got, truth_k, mag), "plain": bn_errors(got, plain, mag),
-           "library": bn_errors(kept(got), kept(lib), mag),
-           "library vs truth": bn_errors(kept(lib), kept(truth_lib), mag),
-           "flips' effect": bn_errors(kept(truth_k), kept(truth_lib), mag),
-           "flips": flips, "flip_ulps": flip_ulps,
-           "dx_max_abs_vs_library": float((kept(got)[0].float() - kept(lib)[0].float())
-                                          .abs().max())}
-    out["ok"] = (max(out["truth"] + out["plain"]) <= 1.0
+    out.update({"truth": bn_errors(got, truth_k, mag), "plain": bn_errors(got, plain, mag),
+                "library": bn_errors(kept(got), kept(lib), mag),
+                "library vs truth": bn_errors(kept(lib), kept(truth_lib), mag),
+                "flips' effect": bn_errors(kept(truth_k), kept(truth_lib), mag),
+                "flips": flips, "flip_ulps": flip_ulps,
+                "dx_max_abs_vs_library": float((kept(got)[0].float() - kept(lib)[0].float())
+                                               .abs().max())})
+    forward_ok = (out["forward_plain_ulps"] <= 1 and out["forward_plain_stats"]
+                  and max(out["forward_truth"]) <= 1.0 and flips == 0) if f32 else (
+        flips <= BN_MAX_FLIP_SHARE * x.numel() and flip_ulps <= BN_FLIP_ULPS)
+    out["ok"] = (forward_ok and max(out["truth"] + out["plain"]) <= 1.0
                  and all(e <= 1.0 + t + f for e, t, f in zip(
-                     out["library"], out["library vs truth"], out["flips' effect"]))
-                 and flips <= BN_MAX_FLIP_SHARE * x.numel() and flip_ulps <= BN_FLIP_ULPS)
+                     out["library"], out["library vs truth"], out["flips' effect"])))
     return out
 
 
 def time_batchnorm(dev) -> list[dict]:
-    """Phase 15: the BatchNorm backward kernels at every layer shape of the
-    main path, with and without the ReLU, through ``BatchNormReLU``, held
-    against an f64 truth, the plain version and the library's backward
-    (``check_batchnorm``); then timed at three shapes in turns with the
-    plain version and the library's backward after a 256 MB write."""
+    """Phase 15: the BatchNorm kernels at every layer shape of the main path,
+    with and without the ReLU, through ``BatchNormReLU``, held against their
+    plain versions, an f64 truth and the library (``check_batchnorm``); then
+    timed at three shapes in turns with the plain version and the library's
+    call after a 256 MB write: the backward in f32 and bf16, the forward in
+    f32."""
     from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
 
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = {}
+    keys = ("truth", "plain", "library", "library vs truth", "flips' effect")
     for chw in BN_SHAPES:
         shape = (9,) + chw
         x32 = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
@@ -2933,23 +3018,36 @@ def time_batchnorm(dev) -> list[dict]:
             for relu in (True, False):
                 res = check_batchnorm(bn, x32.to(dtype), dy32.to(dtype), w, b, relu)
                 torch.cuda.synchronize()
-                name = f"bn_backward {shape} {str(dtype)[6:]} {'relu' if relu else 'plain'}"
-                log(f"{name}: (dx, dweight, dbias) of the tolerance " + "; ".join(
-                    f"against the {k} " + ", ".join(f"{e:.3f}" for e in res[k])
-                    for k in ("truth", "plain", "library", "library vs truth",
-                              "flips' effect")) +
+                name = f"bn {shape} {str(dtype)[6:]} {'relu' if relu else 'plain'}"
+                forward = (f"forward: y {res['forward_plain_ulps']} f32 ulps from its plain "
+                           f"version, statistics bitwise {res['forward_plain_stats']}; (y, "
+                           f"mean, invstd, running mean, running var) of f32_reduce against "
+                           f"the truth " + ", ".join(f"{e:.3f}" for e in res["forward_truth"])
+                           + f"; largest y distance to the library "
+                           f"{res['y_max_abs_vs_library']:.3e}; "
+                           if dtype == torch.float32 else "forward: the library's; ")
+                log(f"{name}: {forward}backward (dx, dweight, dbias) of the tolerance " +
+                    "; ".join(f"against the {k} " + ", ".join(f"{e:.3f}" for e in res[k])
+                              for k in keys) +
                     f"; ReLU mask flips {res['flips']} (largest {res['flip_ulps']:.2f} f32 "
-                    f"ulps from 0); largest dx distance to the library where the masks agree "
+                    f"ulps from 0), {res.get('library_flips', 0)} against the library's "
+                    f"forward; largest dx distance to the library where the masks agree "
                     f"{res['dx_max_abs_vs_library']:.3e}")
-                for k in ("truth", "plain", "library", "library vs truth", "flips' effect"):
+                for k in keys:
                     worst[k] = max([worst.get(k, 0.0)] + res[k])
+                if dtype == torch.float32:
+                    worst["forward_truth"] = max([worst.get("forward_truth", 0.0)] +
+                                                 res["forward_truth"])
+                    worst["forward_plain_ulps"] = max(worst.get("forward_plain_ulps", 0),
+                                                      res["forward_plain_ulps"])
                 worst["flips"] = worst.get("flips", 0) + res["flips"]
                 worst["flip_ulps"] = max(worst.get("flip_ulps", 0.0), res["flip_ulps"])
                 if not res["ok"]:
-                    raise SystemExit(f"{name}: the kernels are off their truth or plain version, "
-                                     f"off the library's backward by more than their tolerance "
-                                     f"and the library's own error, or flip the ReLU's mask "
-                                     f"too often or too far from 0: {res}")
+                    raise SystemExit(f"{name}: the forward is off its plain version or its "
+                                     f"truth, or the backward kernels are off their truth or "
+                                     f"plain version, off the library's backward by more than "
+                                     f"their tolerance and the library's own error, or the "
+                                     f"ReLU's mask flips too often or too far from 0: {res}")
     log(f"phase 15: {len(BN_SHAPES) * 4} cases held (check_batchnorm); the largest shares of "
         f"the tolerance, the mask flips in all and the largest flip: {worst}")
 
@@ -2959,6 +3057,7 @@ def time_batchnorm(dev) -> list[dict]:
         buf.zero_()  # so that the host enqueues the timed call before it starts
         torch.cuda._sleep(2_000_000)
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for shape in BN_TIMED_SHAPES:
         c = shape[1]
@@ -2966,14 +3065,29 @@ def time_batchnorm(dev) -> list[dict]:
         dy32 = torch.randn(shape, device=dev, generator=gen)
         w = torch.rand(c, device=dev, generator=gen) + 0.5
         b = torch.randn(c, device=dev, generator=gen) * 0.5
+        stats = fresh_bn_stats(c, dev)
         for dtype in (torch.float32, torch.bfloat16):
             x, dy = x32.to(dtype), dy32.to(dtype)
+            size = x.numel() * x.element_size()
+            if dtype == torch.float32:
+                ms, plain_ms, lib_ms = time_in_turns(
+                    (lambda: bn.batch_norm_forward(x, w, b, *stats, 0.1, 1e-5, True),
+                     lambda: bn.batch_norm_forward_plain(x, w, b, *stats, 0.1, 1e-5, True, sms),
+                     lambda: bn.forward_library(x, w, b, *stats, 0.1, 1e-5, True)), flush)
+                bound_ms, strict_ms = (k * size / HBM_BYTES_PER_S * 1e3 for k in (3, 2))
+                rows.append({"name": "bn_forward", "shape": list(shape), "dtype": "float32",
+                             "relu": True, "ms": ms, "three_pass_bound_ms": bound_ms,
+                             "strict_bound_ms": strict_ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms})
+                log(f"bn_forward {tuple(shape)} float32 relu: {ms:.4f} ms (three-pass bound "
+                    f"{bound_ms:.4f} ms, {bound_ms / ms:.1%} of it; strict {strict_ms:.4f} ms, "
+                    f"{strict_ms / ms:.1%}); plain {plain_ms:.4f} ms; the library's forward "
+                    f"(cuDNN's) and the ReLU in place {lib_ms:.4f} ms (in turns, write flush)")
             y, mean, invstd, leaves = bn_forward(bn, x, w, b, True, grad=True)
             ms, plain_ms, lib_ms = time_in_turns(
                 (lambda: bn.batch_norm_backward(x, dy, mean, invstd, w, b, True),
                  lambda: bn.batch_norm_backward_plain(x, dy, mean, invstd, w, b, True),
                  lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)), flush)
-            size = x.numel() * x.element_size()
             bound_ms, strict_ms = (k * size / HBM_BYTES_PER_S * 1e3 for k in (5, 3))
             name = f"bn_backward {tuple(shape)} {str(dtype)[6:]} relu"
             rows.append({"name": "bn_backward", "shape": list(shape), "dtype": str(dtype)[6:],
@@ -3185,7 +3299,7 @@ def main() -> int:
     for row in bn_rows or []:
         run = p8 if row["dtype"] == "bfloat16" else p6
         if run is not None:
-            key = "bn_backward" + ("_bf16" if row["dtype"] == "bfloat16" else "")
+            key = row["name"] + ("_bf16" if row["dtype"] == "bfloat16" else "")
             row.update(launches=run["launches"][key], steps=run["steps"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if up_rows is not None:

@@ -14,8 +14,17 @@
   ``nn.BatchNorm2d`` + ``F.relu`` in f32, bf16 and f64, the running
   statistics and ``num_batches_tracked`` too; the running mean, the running
   (unbiased) variance and ``num_batches_tracked`` after a step.
+- The plain forward (``batch_norm_forward_plain``, which repeats the forward
+  kernels' arithmetic) against ``nn.BatchNorm2d`` + ``F.relu`` at every layer
+  shape of the default step (N = 9), in f64 and f32, with and without the
+  ReLU: y, the saved mean and invstd, the running statistics and
+  ``num_batches_tracked``; its multiply-add rounded once; its reading of
+  every value once, in the kernels' order.
 - The split fills an H100's 132 SMs at every layer shape of the default step.
-- The kernels' wrapper takes no CPU tensor.
+- The kernels' wrappers take no CPU tensor, and the forward's refuses any
+  type but f32, a non-contiguous x and parameters of another type or shape;
+  ``BatchNormReLU`` takes the forward kernels for an f32 x and the library's
+  forward for a bf16 one.
 - ``ConvD``, ``ConvU`` and ``DoubleConv`` against the reference's blocks
   (``tests/torch_ref.py``, ``nn.BatchNorm2d`` then ``F.relu``): the same
   ``state_dict`` keys, loaded strictly either way; the ReLU in each
@@ -199,8 +208,153 @@ def test_split_fills_the_card_at_every_layer(chw, per):
 
 def test_the_kernels_wrapper_takes_no_cpu_tensor():
     x, dy, w, b = inputs()
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="CUDA"):
         bn.batch_norm_backward(x, dy, torch.zeros(SHAPE[1]), torch.ones(SHAPE[1]), w, b, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        bn.batch_norm_forward(x, w, b, *fresh_stats(SHAPE[1]), MOMENTUM, EPS, True)
+
+
+# -- the forward ---------------------------------------------------------------
+
+# the plain forward against the module: f32 at f32_reduce, f64 within this
+FORWARD_RTOL = {torch.float32: F32_REDUCE_RTOL, torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "plain"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("chw", LAYER_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_forward_matches_the_module(chw, dtype, relu):
+    """``batch_norm_forward_plain`` on an H100's split against
+    ``nn.BatchNorm2d`` (+ ``F.relu``) in training, from running statistics
+    that are not the defaults: y at the tolerance of its largest magnitude;
+    the saved mean (of its channel's magnitude, |mean| + std) and invstd
+    against ATen's; the running mean and (unbiased) variance; and
+    ``num_batches_tracked`` one more."""
+    c = chw[0]
+    r = np.random.RandomState(c + chw[1])
+    x = torch.from_numpy(r.randn(9, *chw) * 2 + 0.5).to(dtype)
+    w = torch.from_numpy(r.rand(c) + 0.5).to(dtype)
+    b = torch.from_numpy(r.randn(c) * 0.5).to(dtype)
+    start = (torch.from_numpy(r.randn(c)).to(dtype), torch.from_numpy(r.rand(c) + 0.5).to(dtype),
+             torch.tensor(4))
+    ref = torch.nn.BatchNorm2d(c).to(dtype)
+    with torch.no_grad():
+        for t, v in zip((ref.weight, ref.bias, ref.running_mean, ref.running_var,
+                         ref.num_batches_tracked), (w, b, *start)):
+            t.copy_(v)
+        want = ref(x)
+        _, mean_want, invstd_want = torch.native_batch_norm(x, w, b, None, None, True,
+                                                            MOMENTUM, EPS)
+    want = F.relu(want) if relu else want
+    stats = tuple(t.clone() for t in start)
+    y, mean, invstd = bn.batch_norm_forward_plain(x, w, b, *stats, MOMENTUM, EPS, relu, H100_SMS)
+    rtol = FORWARD_RTOL[dtype]
+    assert y.dtype == dtype and y.shape == x.shape
+    err = float((y - want).abs().max() / want.abs().max())
+    assert err <= rtol, f"y: {err:.3e}"
+    std = torch.var(x.double(), (0, 2, 3), correction=0).sqrt()
+    scale = (mean_want.double().abs() + std).numpy()
+    assert float(((mean.double() - mean_want.double()).abs().numpy() / scale).max()) <= rtol
+    np.testing.assert_allclose(invstd.numpy(), invstd_want.numpy(), rtol=rtol)
+    np.testing.assert_allclose(stats[0].numpy(), ref.running_mean.numpy(), rtol=rtol,
+                               atol=rtol * MOMENTUM * float(std.max()))
+    np.testing.assert_allclose(stats[1].numpy(), ref.running_var.numpy(), rtol=rtol)
+    assert int(stats[2]) == int(ref.num_batches_tracked) == 5
+
+
+@pytest.mark.parametrize("chw", LAYER_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_forward_reads_every_value_once_in_the_kernels_order(chw):
+    """At N = 9 on 132 SMs, f32 (4 values a load): the chunks of
+    ``thread_vectors`` cover a channel's loads once each, chunk k those of
+    [k vectors / S, (k + 1) vectors / S), each thread its own in rising
+    order, THREADS apart, and only a thread's last loads may be padding."""
+    c, h, w = chw
+    vectors = 9 * h * w // 4
+    s = bn.splits(9, c, h * w, 4, H100_SMS)
+    idx, valid = bn.thread_vectors(vectors, s)
+    assert idx.shape[:2] == (s, bn.THREADS)
+    assert torch.equal(idx[valid].sort().values, torch.arange(vectors))
+    for k in range(s):
+        got = idx[k][valid[k]]
+        assert int(got.min()) == k * vectors // s and int(got.max()) == (k + 1) * vectors // s - 1
+    steps = idx[..., 1:] - idx[..., :-1]
+    assert bool((steps[valid[..., 1:]] == bn.THREADS).all())
+    assert bool((valid[..., :-1] | ~valid[..., 1:]).all())  # no valid load after padding
+
+
+def exact_f32_fma(a: float, b: float, c: float) -> float:
+    """a b + c rounded once to f32 (to nearest, ties to even), by exact
+    rational arithmetic."""
+    from fractions import Fraction
+
+    exact = Fraction(a) * Fraction(b) + Fraction(c)
+    r = np.float32(float(exact))
+    cands = [r, np.nextafter(r, np.float32(np.inf)), np.nextafter(r, np.float32(-np.inf))]
+    dist = [abs(Fraction(float(v)) - exact) for v in cands]
+    best = min(dist)
+    ties = [v for v, d in zip(cands, dist) if d == best]
+    return float(min(ties, key=lambda v: int(np.array(v).view(np.int32)) & 1))
+
+
+def test_fma_f32_rounds_once():
+    """``fma_f32`` against exact rounding: random triples at several scales,
+    with c near -a b (the ReLU's kink), and sums whose f64 rounding lands on
+    an f32 tie."""
+    r = np.random.RandomState(5)
+    a = (r.randn(3000) * 2.0 ** r.randint(-20, 20, 3000)).astype(np.float32)
+    b = (r.randn(3000) * 2.0 ** r.randint(-20, 20, 3000)).astype(np.float32)
+    c = (r.randn(3000) * 2.0 ** r.randint(-20, 20, 3000)).astype(np.float32)
+    c[:1000] = (-(a[:1000].astype(np.float64) * b[:1000]) * (1 + r.randn(1000) * 1e-6)
+                ).astype(np.float32)
+    # sums whose f64 rounding is an f32 tie that the exact sum lies above
+    ties = np.array([[float.fromhex(a), float.fromhex(b), c] for a, b, c in (
+        ("0x1.00169cp+0", "0x1.ffd2ccp-25", 1.0), ("0x1.00169cp+0", "-0x1.ffd2ccp-25", -1.0),
+        ("0x1.ffd2f8p-1", "0x1.001686p-24", 1.0), ("0x1.ffd2f8p-1", "-0x1.001686p-24", -1.0))],
+        np.float32)
+    a, b, c = (np.concatenate([v, ties[:, i]]) for i, v in enumerate((a, b, c)))
+    got = bn.fma_f32(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = np.array([exact_f32_fma(float(x), float(y), float(z)) for x, y, z in zip(a, b, c)],
+                    np.float32)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    naive = (a.astype(np.float64) * b + c).astype(np.float32)  # rounded twice
+    assert not np.array_equal(naive[-4:].view(np.int32), want[-4:].view(np.int32))
+
+
+BAD_FORWARD = {
+    "bfloat16": (lambda x, w, b, st: (x.bfloat16(), w, b, st), TypeError, "float32"),
+    "float64": (lambda x, w, b, st: (x.double(), w, b, st), TypeError, "float32"),
+    "non_contiguous": (lambda x, w, b, st: (x.transpose(2, 3), w, b, st), ValueError,
+                       "contiguous NCHW"),
+    "weight_shape": (lambda x, w, b, st: (x, w[:-1], b, st), ValueError, "parameters"),
+    "weight_float64": (lambda x, w, b, st: (x, w.double(), b, st), ValueError, "parameters"),
+    "running_var_shape": (lambda x, w, b, st: (x, w, b, (st[0], st[1][None], st[2])),
+                          ValueError, "parameters"),
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_FORWARD))
+def test_forward_wrapper_refuses_what_the_kernels_do_not_take(bad):
+    """Refused for the input's own fault, before the device is looked at."""
+    x, _, w, b = inputs()
+    make, exc, match = BAD_FORWARD[bad]
+    x, w, b, stats = make(x, w, b, fresh_stats(SHAPE[1]))
+    with pytest.raises(exc, match=match):
+        bn.batch_norm_forward(x, w, b, *stats, MOMENTUM, EPS, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_batchnorm_relu_takes_the_forward_kernels_for_f32_alone(dtype, monkeypatch):
+    """The route is the input's type: f32 to the forward kernels (here their
+    plain version in their place), anything else to ``forward_library``."""
+    taken = []
+    plain, library = bn.batch_norm_forward_plain, bn.forward_library
+    monkeypatch.setattr(bn, "batch_norm_forward",
+                        lambda *a: taken.append("kernels") or plain(*a, H100_SMS))
+    monkeypatch.setattr(bn, "forward_library",
+                        lambda *a: taken.append("library") or library(*a))
+    x, _, w, b = inputs(dtype)
+    bn.BatchNormReLU.apply(x, w, b, *fresh_stats(SHAPE[1]), MOMENTUM, EPS, True)
+    assert taken == (["kernels"] if dtype == torch.float32 else ["library"])
 
 
 # -- the blocks against the reference's --------------------------------------------

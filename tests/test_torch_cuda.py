@@ -45,15 +45,19 @@ loop's, the first step within the scan-vs-loop bounds, 8 launches of each
 kernel a replay, the ranks' states bitwise equal, and a resume under the
 loop; the training CLI's launcher (``launch_ranks``) on every card of a
 machine with two or more: the resume-rollback run ends, every rank leaves
-its process group, and the ranks end bitwise equal; the BatchNorm backward
-kernels (``ops/batchnorm_cuda.py``) at each training-mode BatchNorm's shape of
-the default step (N = 9), in f32 and bf16, with and without the ReLU, through
-``BatchNormReLU`` after the library's forward, held by
-``chip_smoke.check_batchnorm`` against an f64 truth, their plain version and
-the library's backward through ``F.batch_norm`` + ``F.relu`` (the recomputed
-ReLU mask's flips counted and bounded), their other variants, a
-batch-strided dy, two calls bitwise equal, the inputs they refuse, and the
-module on the card against the CPU at class ``conv``; the 2x bilinear
+its process group, and the ranks end bitwise equal; the BatchNorm kernels
+(``ops/batchnorm_cuda.py``) at each training-mode BatchNorm's shape of the
+default step (N = 9), in f32 and bf16, with and without the ReLU, through
+``BatchNormReLU`` (the forward kernels in f32, the library's forward in
+bf16, then the backward kernels), held by ``chip_smoke.check_batchnorm``: the
+f32 forward within 1 ulp of its plain version (its statistics bit for bit)
+and within f32_reduce of an f64 truth, the bf16 forward bit for bit the
+library's, the backward against an f64 truth, its plain version and the
+library's backward through ``F.batch_norm`` + ``F.relu`` (the recomputed
+ReLU mask's flips counted: none after the f32 forward, bounded after
+bf16's), their other variants, a batch-strided dy, two calls of each bitwise
+equal, the inputs they refuse, and the module on the card against the CPU
+at class ``conv``; the 2x bilinear
 upsample's kernels (``ops/upsample_cuda.py``) at the decoders' four shapes
 (batch 9) and at odd and edge shapes: the forward bit for bit the
 ``F.interpolate`` calls it replaces (two passes in bf16, one in f32), infs,
@@ -670,9 +674,9 @@ def test_graphed_step_matches_the_same_step_eager(cuda, dtype):
     ``chip_smoke.POST_UPDATE``). The largest parameter differences are
     printed beside each other, with no bound (as the JAX package's
     scan-vs-loop test compares no parameters). A captured step counts 8
-    launches of each covariance kernel, 148 of the BatchNorm backward (the
-    forward is PyTorch's), 32 of the upsample's forward and 24 of its
-    backward (``STEP_LAUNCHES``)."""
+    launches of each covariance kernel, 198 of the BatchNorm forward in f32
+    (none in bf16, whose forward is PyTorch's) and 148 of its backward, 32 of
+    the upsample's forward and 24 of its backward (``STEP_LAUNCHES``)."""
     import chip_smoke as cs
 
     res = cs.graph_vs_eager_step(cuda, dict(default_hparams("WT_PSE"), compute_dtype=dtype),
@@ -680,23 +684,26 @@ def test_graphed_step_matches_the_same_step_eager(cuda, dtype):
     print(res)
     assert res["graph_vs_eager"]["err_of_bound"] <= 1.0, res
     key = "launches_bf16" if dtype == "bfloat16" else "launches"
-    assert res["launches_a_step"] == {f"{k}.{key}": n for k, n in STEP_LAUNCHES.items()}, res
+    assert res["launches_a_step"] == {f"{k}.{key}": n for k, n in STEP_LAUNCHES.items()
+                                      if key == "launches" or k not in F32_ONLY}, res
 
 
 # the hand-written kernels' launches in a step of the default WT_PSE
-# configuration, in either dtype (the forward's BatchNorm is PyTorch's: no
-# launch of the port's). The upsample: 4 a U-Net forward, 8 U-Net forwards a
-# step (the teachers' 2 without grad), 6 backwards
+# configuration in f32, and in bf16 but for ``F32_ONLY`` (the bf16 BatchNorm
+# forward is PyTorch's). BatchNorm: 198 training-mode forwards a step (the
+# teachers' no-grad ones too), 148 backwards. The upsample: 4 a U-Net forward,
+# 8 U-Net forwards a step (the teachers' 2 without grad), 6 backwards
 STEP_LAUNCHES = {"covariance_forward": 8, "covariance_backward": 8,
-                 "batch_norm_backward": 148, "upsample2x_forward": 32,
-                 "upsample2x_backward": 24}
+                 "batch_norm_forward": 198, "batch_norm_backward": 148,
+                 "upsample2x_forward": 32, "upsample2x_backward": 24}
+F32_ONLY = ("batch_norm_forward",)
 
 
 def test_capture_leaves_the_run_as_it_was_and_replays_count_their_launches(cuda, tmp_path):
     """Capturing the step changes no weight, BatchNorm statistic, Adam state,
     step count or generator state, and the launch counters move by the
-    warm-up's eager steps alone (8 of each covariance kernel and 148
-    BatchNorm backwards a step), not by the capture; each replay adds a
+    warm-up's eager steps alone (``STEP_LAUNCHES`` a step), not by the
+    capture; each replay adds a
     step's launches and one step."""
     from wt_pse_tpu_torch.train.graph import COUNTED, WARMUP_STEPS, GraphedStep
 
@@ -839,7 +846,7 @@ def _assert_dp_graph_rank(res):
     the loop from one seed draw the same batches, their first steps agree at
     the scan-vs-loop bounds (rtol 1e-4, atol 1e-6), 8 launches of each kernel
     a replayed step (and the upsample's: ``STEP_LAUNCHES``; sync BatchNorm
-    launches none of the port's), the checkpoint resumes under the loop and,
+    launches none of the port's BatchNorm kernels), the checkpoint resumes under the loop and,
     restored in place, under the DP graph, whose ``nan_recovery`` rolls back
     bitwise into the graph's tensors."""
     assert res["drivers"] == ["graph", "eager"] and res["graphed"], res
@@ -849,7 +856,7 @@ def _assert_dp_graph_rank(res):
         np.testing.assert_allclose(graph[k], v, rtol=1e-4, atol=1e-6, err_msg=k)
     assert res["same_batches"] == [True] * res["iter_per_epoch"], res
     per_step = {f"{k}.launches": n for k, n in STEP_LAUNCHES.items()
-                if k != "batch_norm_backward"}
+                if not k.startswith("batch_norm_")}
     assert res["launches_a_step"] == per_step, res
     assert res["launches_an_epoch"] == {k: n * res["iter_per_epoch"]
                                         for k, n in per_step.items()}, res
@@ -935,13 +942,18 @@ def bn_inputs(cuda, shape, dtype, seed=0, offset=0):
 
 
 def assert_bn_backward_holds(x, dy, w, b, relu):
-    """``chip_smoke.check_batchnorm``: ``BatchNormReLU`` (the library's
-    forward, then the kernels) within the kernels' tolerance of an f64 truth
-    with their ReLU mask and of the plain version, and of the library's
-    backward through the same forward + ``F.relu`` within that tolerance and
+    """``chip_smoke.check_batchnorm``: ``BatchNormReLU`` (the forward kernels
+    in f32, the library's forward in bf16, then the backward kernels). The
+    f32 forward within 1 ulp of its plain version, its saved and running
+    statistics and ``num_batches_tracked`` bit for bit, and y and the
+    statistics within f32_reduce of an f64 truth; the bf16 forward bit for
+    bit the library's. The backward within the kernels' tolerance of an f64
+    truth with their ReLU mask and of the plain version, and of the library's
+    backward through its own forward + ``F.relu`` within that tolerance and
     the library's own distance from its truth (ATen's bf16 channel sums read
-    up to 64x f32_reduce from it); the recomputed mask flips on at most 1e-5
-    of the elements, each within 8 f32 ulps of 0."""
+    up to 64x f32_reduce from it); the recomputed mask flips on no element
+    after the f32 forward, after the bf16 one on at most 1e-5 of the
+    elements, each within 8 f32 ulps of 0."""
     import chip_smoke as cs
     from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
 
@@ -954,16 +966,22 @@ def assert_bn_backward_holds(x, dy, w, b, relu):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("chw", BN_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_batchnorm_kernels_match_plain_versions(cuda, chw, dtype, relu):
-    """Each layer's shape at N = 9 through ``BatchNormReLU`` (cuDNN's forward
-    in f32, ATen's in bf16, then the kernels; one launch counted), as
-    ``assert_bn_backward_holds``."""
+    """Each layer's shape at N = 9 through ``BatchNormReLU`` (the forward
+    kernels in f32, ATen's forward in bf16, then the backward kernels; one
+    launch of each kernel pair counted), as ``assert_bn_backward_holds``."""
     from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
 
     x, dy, w, b, _ = bn_inputs(cuda, (9,) + chw, dtype)
-    b0 = bn.batch_norm_backward.launches + bn.batch_norm_backward.launches_bf16
+    fns = (bn.batch_norm_forward, bn.batch_norm_backward)
+    before = cuda_lib.launch_counts(fns)
     assert_bn_backward_holds(x, dy, w, b, relu)
     torch.cuda.synchronize()
-    assert bn.batch_norm_backward.launches + bn.batch_norm_backward.launches_bf16 - b0 == 1
+    key = "launches" if dtype == torch.float32 else "launches_bf16"
+    want = dict.fromkeys(before, 0)
+    want["batch_norm_backward", key] = 1
+    want["batch_norm_forward", key] = int(dtype == torch.float32)
+    after = cuda_lib.launch_counts(fns)
+    assert {k: after[k] - n for k, n in before.items()} == want
 
 
 # the kernels' other variants: HW not a multiple of the values in 16 bytes, a
@@ -1003,7 +1021,8 @@ def test_batchnorm_backward_takes_a_channel_slice_of_a_gradient(cuda, dtype):
                          ids=lambda s: "x".join(map(str, s)))
 def test_two_batchnorm_kernel_calls_are_bitwise_equal(cuda, chw, dtype):
     """No atomics: two calls give the same dx, dweight and dbias, bit for
-    bit."""
+    bit; in f32 two forwards the same y, saved statistics and running
+    statistics too."""
     from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
 
     x, dy, w, b, stats = bn_inputs(cuda, (9,) + chw, dtype)
@@ -1011,13 +1030,26 @@ def test_two_batchnorm_kernel_calls_are_bitwise_equal(cuda, chw, dtype):
     out = [bn.batch_norm_backward(x, dy, mean, invstd, w, b, True) for _ in range(2)]
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*out))
+    if dtype == torch.float32:
+        runs = []
+        for _ in range(2):
+            st = [t.clone() for t in stats]
+            runs.append([*bn.batch_norm_forward(x, w, b, *st, 0.1, 1e-5, True), *st])
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.parametrize("bad", ["float64", "float16", "channels_last", "non_contiguous"])
 def test_batchnorm_wrappers_raise_on_unsupported_input(cuda, bad):
+    """Both wrappers; the forward refuses a bf16 x too (its kernels are
+    exported for f32 alone), and parameters of another shape."""
     from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
 
-    x, dy, w, b, _ = bn_inputs(cuda, (2, 16, 8, 8), torch.float32)
+    x, dy, w, b, stats = bn_inputs(cuda, (2, 16, 8, 8), torch.float32)
+    with pytest.raises(TypeError):
+        bn.batch_norm_forward(x.bfloat16(), w, b, *stats, 0.1, 1e-5, True)
+    with pytest.raises(ValueError):
+        bn.batch_norm_forward(x, w[:8], b, *stats, 0.1, 1e-5, True)
     x = {"float64": x.double(), "float16": x.half(),
          "channels_last": x.contiguous(memory_format=torch.channels_last),
          "non_contiguous": x.transpose(2, 3)}[bad]
@@ -1025,14 +1057,16 @@ def test_batchnorm_wrappers_raise_on_unsupported_input(cuda, bad):
     for relu in (True, False):
         with pytest.raises((TypeError, ValueError)):
             bn.batch_norm_backward(x, dy.to(x.dtype), mean, invstd, w, b, relu)
+        with pytest.raises((TypeError, ValueError)):
+            bn.batch_norm_forward(x, w, b, *stats, 0.1, 1e-5, relu)
 
 
 def test_batchnorm_module_on_the_card_matches_the_cpu(cuda):
-    """``BatchNorm2d(relu=True)`` in training on the card (cuDNN's forward,
-    the backward kernels) against the CPU (``nn.BatchNorm2d`` + ``F.relu``),
-    at class conv: output, input and parameter gradients, running
-    statistics; one backward launch on the card, none on the CPU or in eval
-    mode."""
+    """``BatchNorm2d(relu=True)`` in training on the card (the forward and
+    backward kernels) against the CPU (``nn.BatchNorm2d`` + ``F.relu``), at
+    class conv: output, input and parameter gradients, running statistics;
+    one forward and one backward launch on the card, none on the CPU or in
+    eval mode."""
     from wt_pse_tpu_torch.models.layers import BatchNorm2d
     from wt_pse_tpu_torch.ops import batchnorm_cuda as bn
 
@@ -1043,12 +1077,13 @@ def test_batchnorm_module_on_the_card_matches_the_cpu(cuda):
     for dev in ("cpu", cuda):
         m = BatchNorm2d(16, relu=True).to(dev)
         xd = x.clone().to(dev).requires_grad_()
-        b0 = bn.batch_norm_backward.launches
+        b0, f0 = bn.batch_norm_backward.launches, bn.batch_norm_forward.launches
         y = m(xd)
         (y * w.to(dev)).sum().backward()
         assert bn.batch_norm_backward.launches - b0 == (0 if dev == "cpu" else 1)
         m.eval()
         y_eval = m(x.to(dev))
+        assert bn.batch_norm_forward.launches - f0 == (0 if dev == "cpu" else 1)
         out.append([t.detach().cpu() for t in (y, xd.grad, m.weight.grad, m.bias.grad,
                                                 m.running_mean, m.running_var, y_eval)])
     names = ("output", "grad", "dweight", "dbias", "running_mean", "running_var", "eval")

@@ -1,5 +1,5 @@
-// The backward of training-mode BatchNorm with the ReLU that follows it fused
-// in, written by hand for Hopper (sm_90a). Built by ops/batchnorm_cuda.py
+// Training-mode BatchNorm with the ReLU that follows it fused in, forward and
+// backward, written by hand for Hopper (sm_90a). Built by ops/batchnorm_cuda.py
 // (through ops/cuda_lib.py::build) with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and called through ctypes (plain C entry points at the end of this file).
@@ -9,43 +9,59 @@
 // each channel in one block (batch_norm_backward_reduce_kernel), so the 16-
 // and 32-channel layers at 256x256 and 128x128, which hold most of the bytes,
 // ran on 16-64 of 132 SMs, and the ReLU's backward before it was one more
-// pass that read its saved output and wrote a gradient.
+// pass that read its saved output and wrote a gradient. cuDNN's f32 forward
+// (bn_fw_tr_1C11_*) was followed by the ReLU as a pass of its own over y.
 //
-// Same arithmetic as the backward of nn.BatchNorm2d (training) + F.relu, from
-// the forward's saved mean and invstd (biased variance), in f32; x, dy and dx
-// are f32, or bf16 in the bf16 training mode with f32 statistics, parameters
-// and sums. The map is NCHW with rows of HW values; dy may have any batch
-// stride (the gradient of a channel slice of a concat).
+// Same arithmetic as nn.BatchNorm2d (training) + F.relu, in f32: the forward
+// gives y, the saved mean and invstd (biased variance) and updates the
+// running statistics (unbiased variance, momentum) and num_batches_tracked;
+// the backward takes the saved mean and invstd. x, dy, y and dx are f32, or
+// bf16 in the bf16 training mode with f32 statistics, parameters and sums
+// (the forward's entry point is f32 alone: bf16's output check holds the
+// forward to the library's rounding). The map is NCHW with rows of HW
+// values; dy may have any batch stride (the gradient of a channel slice of a
+// concat).
 //
-// The ReLU's mask is recomputed from x: g = dy where fmaf(x - mean, invstd w,
-// b) is not <= 0 (so a NaN passes, as in torch), else 0. The output is not
-// kept for it: kept, it stays live through this backward beside x, dy and dx,
-// and the f32 step's CUDA graph pool grew from 5.0 to 7.2 GB. The forward
-// that ran (cuDNN's or ATen's) rounds y its own way, so where y lies within
-// an f32 rounding of 0 the recomputed sign can differ from the forward's;
-// the gradient there is the other side of the ReLU's kink.
+// The ReLU: the pre-activation is fmaf(x - mean, invstd w, b), and y = 0
+// where it is <= 0 (a NaN passes, as in torch). The backward recomputes its
+// mask from x by the same expression: g = dy where it is not <= 0, else 0.
+// The output is not kept for it: kept, it stays live through the backward
+// beside x, dy and dx, and the f32 step's CUDA graph pool grew from 5.0 to
+// 7.2 GB. After this forward the two sides of the kink agree bit for bit;
+// after another forward (ATen's, in bf16), where y lies within a rounding of
+// 0 the recomputed sign can differ from the forward's.
 //
-// What bounds it: bytes. It reads x and dy twice and writes dx: at the main
-// path's layers (N = 9, C = 16-256, HW = 256^2 down to 16^2) 5 passes over a
-// map. The design fills the card at every layer and keeps the second read in
-// L2:
+// What bounds it: bytes. The forward reads x twice and writes y, the backward
+// reads x and dy twice and writes dx: at the main path's layers (N = 9,
+// C = 16-256, HW = 256^2 down to 16^2) 3 and 5 passes over a map. The design
+// fills the card at every layer and keeps the second read in L2:
 //  - every channel's N x HW values are cut into S chunks (S from the shape, in
 //    the wrapper, so that C x S blocks cover the card several times over); one
 //    block a chunk, 256 threads, 16-byte loads (4 f32 or 8 bf16; one value a
 //    load where HW is not a multiple of that or a pointer is not 16-byte
 //    aligned), two in flight a thread;
+//  - bn_fw_reduce_kernel: the moments of its chunk about the channel's first
+//    value (its shift): sums of d = x - shift and d^2, added across the block
+//    by warp shuffles and across warps in a fixed order, one partial a block:
+//    the chunk's mean of d and M2 (squared deviations from that mean);
+//  - bn_fw_apply_kernel: each block merges its channel's S partials by Chan's
+//    formula in one fixed order, so every block of a channel has the same
+//    mean and invstd, bit for bit; block s = 0 writes the saved statistics
+//    and the running ones (and block 0 num_batches_tracked); every block
+//    writes y for its chunk;
 //  - bn_bw_reduce_kernel: partial sums of g and g (x - mean) over its chunk,
-//    added across the block by warp shuffles and across warps in a fixed
-//    order, one partial a block;
+//    added as the forward's, one partial a block;
 //  - bn_bw_apply_kernel: each block adds its channel's S partials in one
 //    fixed order, so every block of a channel has the same sums, bit for bit;
 //    block s = 0 writes dweight = sum g x^ and dbias = sum g; every block
 //    writes dx = w invstd (g - sum g / M - x^ sum g x^ / M) for its chunk.
-// The apply kernel walks the chunks in the reverse order of the reduction, so
-// its first blocks read what that pass read last, still in the 50 MB L2, and
-// it is a programmatic dependent launch: scheduled while the reduction runs,
+// Each apply kernel walks the chunks in the reverse order of its reduction,
+// so its first blocks read what that pass read last, still in the 50 MB L2,
+// and is a programmatic dependent launch: scheduled while the reduction runs,
 // it waits for it (griddepcontrol), which hides its launch. No atomics: two
-// calls give bitwise equal results.
+// calls give bitwise equal results. The forward's statistics round each
+// operation on its own (the __f*_rn intrinsics: no contraction into fmas),
+// in an order that ops/batchnorm_cuda.py::batch_norm_forward_plain repeats.
 
 #include <cstdint>
 #include <type_traits>
@@ -59,6 +75,9 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// blocks an SM the forward's apply kernel is held to (32 registers a thread):
+// the wrapper's WAVE_BLOCKS, so that the C x S blocks are resident at once
+constexpr int kBlocksPerSM = 8;
 
 template <typename T>
 constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));  // values in 16 bytes
@@ -179,6 +198,130 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   }
 }
 
+// -- forward ------------------------------------------------------------------
+
+// The moments of a part of a channel: its count, its mean less the channel's
+// shift, and its M2, the sum of squared deviations from that mean.
+struct Moments {
+  float n, m, m2;
+};
+
+// Chan's pairwise update: a becomes a and b together (b empty: a stays).
+__device__ __forceinline__ void merge(Moments& a, const Moments& b) {
+  if (b.n == 0.f) return;
+  const float n = __fadd_rn(a.n, b.n);
+  const float delta = __fsub_rn(b.m, a.m);
+  const float f = __fdiv_rn(b.n, n);
+  a.m = __fadd_rn(a.m, __fmul_rn(delta, f));
+  a.m2 = __fadd_rn(__fadd_rn(a.m2, b.m2),
+                   __fmul_rn(__fmul_rn(__fmul_rn(delta, delta), a.n), f));
+  a.n = n;
+}
+
+// partial[k] = (mean of d, M2) over chunk k, d = x - x[0, c, 0].
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+bn_fw_reduce_kernel(const T* __restrict__ x, float* __restrict__ partial, int N, int C, int R,
+                    int S) {
+  launch_dependents();
+  const Chunk ch = chunk_of(blockIdx.x, S, N * R);
+  const int cR = ch.c * R, CR = C * R;
+  float shift[1];
+  load_vals<T, 1>(x, cR * V, shift);
+  float s1 = 0.f, s2 = 0.f;
+  walk(ch.j0, ch.j1, R, [&](int row, int r) {
+    float v[V];
+    load_vals<T, V>(x, row * CR + cR + r, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float d = __fsub_rn(v[i], shift[0]);
+      s1 = __fadd_rn(s1, d);
+      s2 = __fadd_rn(s2, __fmul_rn(d, d));
+    }
+  });
+  block_sum2(s1, s2);
+  if (threadIdx.x == 0) {
+    const float n = static_cast<float>((ch.j1 - ch.j0) * V);
+    const float m = __fdiv_rn(s1, n);
+    partial[2 * static_cast<size_t>(blockIdx.x)] = m;
+    partial[2 * static_cast<size_t>(blockIdx.x) + 1] = __fsub_rn(s2, __fmul_rn(s1, m));
+  }
+}
+
+// y = fmaf(x - mean, invstd w, b) over chunk C S - 1 - blockIdx.x (0 where
+// that is <= 0, with the ReLU), after the channel's moments from its
+// partials (warp 0: lane-strided, then by shuffles); block s = 0 writes the
+// saved mean and invstd and updates the running statistics, block 0
+// num_batches_tracked.
+template <typename T, int V, bool kRelu>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+bn_fw_apply_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ partial,
+                   const float* __restrict__ weight, const float* __restrict__ bias,
+                   float* __restrict__ save_mean, float* __restrict__ save_invstd,
+                   float* __restrict__ running_mean, float* __restrict__ running_var,
+                   long long* __restrict__ num_batches_tracked, int N, int C, int R, int S,
+                   float momentum, float eps) {
+  __shared__ float stats[2];
+  const int per_channel = N * R;
+  const Chunk ch = chunk_of(gridDim.x - 1 - blockIdx.x, S, per_channel);
+  const int cR = ch.c * R, CR = C * R;
+  float shift[1];
+  load_vals<T, 1>(x, cR * V, shift);
+  const float w = weight[ch.c], b = bias[ch.c];
+  wait_for_primary_grid();
+  if (threadIdx.x < 32) {
+    const float* p = partial + 2 * static_cast<size_t>(ch.c) * S;
+    // chunk i holds floor((i + 1) P / S) - floor(i P / S) loads, P = q S + rem
+    const int q = per_channel / S, rem = per_channel - q * S;
+    Moments a = {0.f, 0.f, 0.f};
+    for (int i = threadIdx.x; i < S; i += 32) {
+      const int loads = q + (i + 1) * rem / S - i * rem / S;
+      merge(a, {static_cast<float>(loads * V), p[2 * i], p[2 * i + 1]});
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const Moments other = {__shfl_down_sync(0xffffffffu, a.n, o),
+                             __shfl_down_sync(0xffffffffu, a.m, o),
+                             __shfl_down_sync(0xffffffffu, a.m2, o)};
+      merge(a, other);
+    }
+    if (threadIdx.x == 0) {
+      const long long count = static_cast<long long>(per_channel) * V;
+      const float m2 = a.m2 < 0.f ? 0.f : a.m2;  // a rounding below 0; a NaN stays
+      const float mean = __fadd_rn(shift[0], a.m);
+      const float var = __fdiv_rn(m2, static_cast<float>(count));
+      const float invstd = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+      stats[0] = mean;
+      stats[1] = invstd;
+      if (ch.s == 0) {
+        save_mean[ch.c] = mean;
+        save_invstd[ch.c] = invstd;
+        const float keep = __fsub_rn(1.f, momentum);
+        const float unbiased = __fdiv_rn(m2, static_cast<float>(count - 1));
+        running_mean[ch.c] = __fadd_rn(__fmul_rn(keep, running_mean[ch.c]),
+                                       __fmul_rn(momentum, mean));
+        running_var[ch.c] = __fadd_rn(__fmul_rn(keep, running_var[ch.c]),
+                                      __fmul_rn(momentum, unbiased));
+        if (ch.c == 0) *num_batches_tracked += 1;
+      }
+    }
+  }
+  __syncthreads();
+  // the backward's expression for its mask (masked): the same bits
+  const float mean = stats[0], scale = stats[1] * w;
+  walk(ch.j0, ch.j1, R, [&](int row, int r) {
+    const int off = row * CR + cR + r;
+    float v[V];
+    load_vals<T, V>(x, off, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float pre = fmaf(v[i] - mean, scale, b);
+      v[i] = kRelu && pre <= 0.f ? 0.f : pre;
+    }
+    store_vals<T, V>(y, off, v);
+  });
+}
+
 // -- backward -----------------------------------------------------------------
 
 // g at one value with x - mean = xm: dy, and with the ReLU 0 where the
@@ -296,6 +439,49 @@ cudaError_t launch_dependent(void (*kernel)(KArgs...), int blocks, cudaStream_t 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <typename T, int V, bool kRelu>
+int forward_launch(const T* x, T* y, float* partial, const float* weight, const float* bias,
+                   float* save_mean, float* save_invstd, float* running_mean, float* running_var,
+                   long long* num_batches_tracked, int N, int C, int HW, int S, float momentum,
+                   float eps, cudaStream_t st) {
+  const int R = HW / V, blocks = C * S;
+  bn_fw_reduce_kernel<T, V><<<blocks, kThreads, 0, st>>>(x, partial, N, C, R, S);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_dependent(&bn_fw_apply_kernel<T, V, kRelu>, blocks, st, x, y, partial, weight,
+                         bias, save_mean, save_invstd, running_mean, running_var,
+                         num_batches_tracked, N, C, R, S, momentum, eps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 16-byte variant where HW is a multiple of the values in 16 bytes and x
+// and y are 16-byte aligned, else one value a load.
+template <typename T>
+int forward(const void* x, void* y, void* partial, const void* weight, const void* bias,
+            void* save_mean, void* save_invstd, void* running_mean, void* running_var,
+            void* num_batches_tracked, int N, int C, int HW, int S, float momentum, float eps,
+            int relu, void* stream) {
+  constexpr int kPer = kPer16<T>;
+  const bool vec = HW % kPer == 0 && aligned16(x) && aligned16(y);
+  auto run = [&](auto v, auto with) {
+    constexpr int V = decltype(v)::value;
+    constexpr bool kRelu = decltype(with)::value;
+    return forward_launch<T, V, kRelu>(
+        static_cast<const T*>(x), static_cast<T*>(y), static_cast<float*>(partial),
+        static_cast<const float*>(weight), static_cast<const float*>(bias),
+        static_cast<float*>(save_mean), static_cast<float*>(save_invstd),
+        static_cast<float*>(running_mean), static_cast<float*>(running_var),
+        static_cast<long long*>(num_batches_tracked), N, C, HW, S, momentum, eps,
+        static_cast<cudaStream_t>(stream));
+  };
+  auto with_relu = [&](auto v) {
+    return relu != 0 ? run(v, std::true_type{}) : run(v, std::false_type{});
+  };
+  return vec ? with_relu(std::integral_constant<int, kPer>{})
+             : with_relu(std::integral_constant<int, 1>{});
+}
+
+template <typename T, int V, bool kRelu>
 int backward_launch(const T* x, const T* dy, T* dx, float* partial, const float* save_mean,
                     const float* save_invstd, const float* weight, const float* bias,
                     float* dweight, float* dbias, int N, int C, int HW, int dy_batch_stride,
@@ -342,6 +528,21 @@ int backward(const void* x, const void* dy, void* dx, void* partial, const void*
 }  // namespace
 
 extern "C" {
+
+// y (contiguous, x's type), save_mean and save_invstd ((C,) f32) of x (N, C,
+// HW) f32, contiguous, with the ReLU when relu; running_mean and running_var
+// ((C,) f32) updated at momentum, num_batches_tracked (one int64) incremented.
+// partial: 2 C S f32 of scratch, S chunks a channel (1 <= S <= N HW). Returns
+// the cudaError_t of the launches (0 on success).
+int wtpse_bn_forward_f32(const void* x, void* y, void* partial, const void* weight,
+                         const void* bias, void* save_mean, void* save_invstd,
+                         void* running_mean, void* running_var, void* num_batches_tracked,
+                         int N, int C, int HW, int S, float momentum, float eps, int relu,
+                         void* stream) {
+  return forward<float>(x, y, partial, weight, bias, save_mean, save_invstd, running_mean,
+                        running_var, num_batches_tracked, N, C, HW, S, momentum, eps, relu,
+                        stream);
+}
 
 // dx (contiguous, x's type), dweight and dbias ((C,) f32) for x (N, C, HW) f32
 // or bf16, contiguous, and the forward's saved save_mean and save_invstd;

@@ -143,8 +143,9 @@ class BatchNorm2d(nn.BatchNorm2d):
       ``n * size``, written back in their own dtype.
 
     In training without a mesh on the card it is
-    ``ops/batchnorm_cuda.py::BatchNormReLU``: ``nn.BatchNorm2d``'s own forward
-    and the ReLU, and one backward through both by the hand-written kernels.
+    ``ops/batchnorm_cuda.py::BatchNormReLU``: one forward through both by the
+    hand-written kernels for an f32 x (``nn.BatchNorm2d``'s own forward and
+    the ReLU for bf16), and one backward through both by the kernels.
     Otherwise (eval mode, or a CPU tensor) it is ``nn.BatchNorm2d.forward``
     itself, then the ReLU. The ``state_dict`` is ``nn.BatchNorm2d``'s either
     way. ``torch.nn.

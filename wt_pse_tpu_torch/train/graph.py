@@ -84,8 +84,8 @@ from wt_pse_tpu_torch.utils.trace import DeviceMarks, Tracer
 
 WARMUP_STEPS = 3
 # the hand-written kernels' wrappers, each counting its launches by element type
-COUNTED = (cc.covariance_forward, cc.covariance_backward, bn.batch_norm_backward,
-           up.upsample2x_forward, up.upsample2x_backward)
+COUNTED = (cc.covariance_forward, cc.covariance_backward, bn.batch_norm_forward,
+           bn.batch_norm_backward, up.upsample2x_forward, up.upsample2x_backward)
 
 
 class GraphedStep:
